@@ -12,19 +12,27 @@ Phases (any failed check raises and the script exits non-zero):
   4. K2 RoIAlign: kernel vs plain PyTorch at feats [8, 16, 16, 2048] in bf16
      and f32 with 256 boxes per image, edge boxes included (max abs error
      <= 1e-4);
-  5. reference: a small model (shallow backbone, tiny decoder) serves the
+  5. K3 beam attention: kernel vs plain PyTorch at the beam path's shape
+     (384 lanes = 96 items x 4 beams, 16 heads, 61 slots, 64 dims, a
+     simulated ancestry, slot 31) with f32, bf16 and int8 caches (max abs
+     error <= 1e-5 f32, <= 1e-4 bf16/int8);
+  6. reference: a small model (shallow backbone, tiny decoder) serves the
      same uint8 images on the card (kernels) and on the CPU (plain
-     versions); reports and detector decisions must be identical;
-  6. main path: a full-width ReportGenerator (ResNet-50, 1000 proposals,
+     versions), greedy and at the beam-4 default; reports and detector
+     decisions must be identical;
+  7. main path: a full-width ReportGenerator (ResNet-50, 1000 proposals,
      bf16 detector; GPT-2 Medium, 24 layers x 1024 wide x 16 heads, vocab
      50257, bf16) with seeded random weights answers 3 requests of 8 raw
-     uint8 2048x2500 X-rays through generate_reports (greedy,
-     max_length 60); the NMS launch counter must rise by 1 and the
-     RoIAlign counter by 4 per detect;
-  7. int8 KV cache: the last request's selected regions decoded again with
-     decode_selected_cascade(..., kv_cache_dtype=torch.int8);
-  8. breakdown: upload, detect and decode timed apart, and one request
-     under torch.profiler (device busy share, top kernels).
+     uint8 2048x2500 X-rays through generate_reports (max_length 60),
+     greedy (num_beams=1) and then at its default (beam 4, early
+     stopping); per request the NMS launch counter must rise by 1, the
+     RoIAlign counter by 4, and on the beam path the beam-attention
+     counter by 24 per decode step;
+  8. int8 KV cache: the last request's selected regions decoded again,
+     greedy and beam 4, with kv_cache_dtype=torch.int8;
+  9. breakdown: upload, detect and decode timed apart, and one greedy and
+     one beam request under torch.profiler (device busy share, top
+     kernels).
 
 TF32 is off for the comparison phases. Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -45,11 +53,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet) for the bound columns
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's ~1.98 GHz boost clock
 
 REQUESTS = 3
 BATCH = 8
 RAW_SHAPE = (2048, 2500)
 MAX_LENGTH = 60
+BEAMS = 4            # the product default (GenerationConfig.num_beams)
+# beam attention at the beam path's shape: 96 items (the row budget of 65-96
+# selected regions) x 4 beams, GPT-2 Medium heads, 1 + MAX_LENGTH slots
+K3_SHAPE = dict(items=96, beams=BEAMS, heads=16, slots=1 + MAX_LENGTH, dim=64, slot=31)
+K3_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -69,12 +83,16 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (events)."""
+    """Mean device time of fn() over `iters` back-to-back calls (events).
+    A spin kernel (~50 ms) queued first keeps the card busy while the host
+    enqueues the calls, so a kernel shorter than its host-side launch is
+    timed back to back on the device, not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -217,18 +235,104 @@ def phase_roi(np, torch, dev, result):
     result["roi_align"] = rows
 
 
+def k3_inputs(np, torch, dev, kind, seed=2):
+    """Unit-scale q/k/v and an ancestry grown as beam search grows it: each
+    step every beam picks a random parent beam of its item and owns the
+    slot it writes (so beams share early history, as real ones do)."""
+    from rgrg_tpu_torch.models.gpt2 import _quantize_kv
+    sh = K3_SHAPE
+    rng = np.random.default_rng(seed)
+    b, k, h, t, d, slot = (sh["items"], sh["beams"], sh["heads"], sh["slots"],
+                           sh["dim"], sh["slot"])
+    anc = np.broadcast_to(np.arange(k, dtype=np.int32)[None, :, None], (b, k, t)).copy()
+    for s in range(2, slot + 1):
+        parent = rng.integers(0, k, (b, k))
+        anc = np.take_along_axis(anc, parent[:, :, None], axis=1)
+        anc[:, :, s] = np.arange(k)
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.from_numpy(rng.normal(0, 1, (b * k, h, d)).astype(np.float32)).to(dev, dtype)
+    kv = [torch.from_numpy(rng.normal(0, 1, (h, b * k, t, d)).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    scales = {}
+    if kind == "int8":
+        (kq, ks), (vq, vs) = _quantize_kv(kv[0]), _quantize_kv(kv[1])
+        kv, scales = [kq, vq], {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        kv = [x.to(dtype) for x in kv]
+    return q, kv[0], kv[1], torch.from_numpy(anc).to(dev), slot, scales
+
+
+def phase_beam_attn(np, torch, dev, result):
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
+    rows = {}
+    for kind in ("bf16", "f32", "int8"):
+        q, k, v, anc, slot, scales = k3_inputs(np, torch, dev, kind)
+        scale = K3_SHAPE["dim"] ** -0.5
+        got = beam_attention(q, k, v, anc, slot, scale=scale, **scales)
+        want = beam_attention_plain(q, k, v, anc, slot, scale=scale, **scales)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"beam attention non-finite ({kind})")
+        check(err <= K3_TOL[kind], f"beam attention kernel vs plain max abs err {err} "
+              f"({kind}, tolerance {K3_TOL[kind]})")
+        ms = cuda_ms(torch, lambda: beam_attention(q, k, v, anc, slot, scale=scale,
+                                                   **scales), 200)
+        plain_ms = cuda_ms(torch, lambda: beam_attention_plain(q, k, v, anc, slot,
+                                                               scale=scale, **scales), 10)
+        # yardstick, used nowhere in the port: gather the named rows, then
+        # PyTorch's fused attention (two calls; no single call does both)
+        two_call_ms = None
+        if kind != "int8":
+            def gather_sdpa():
+                bk, h, d = q.shape
+                base = torch.arange(anc.shape[0], device=dev)[:, None, None] * anc.shape[1]
+                lanes = (base + anc.long()).reshape(bk, -1)[:, :slot + 1]
+                idx = lanes[None, :, :, None].expand(h, bk, slot + 1, d)
+                kg = torch.gather(k[:, :, :slot + 1], 1, idx).transpose(0, 1)
+                vg = torch.gather(v[:, :, :slot + 1], 1, idx).transpose(0, 1)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kg, vg, scale=scale)
+            lib = gather_sdpa()[:, :, 0].float()
+            check((lib - want).abs().max().item() <= 2e-2, "gather+SDPA yardstick disagrees")
+            two_call_ms = cuda_ms(torch, gather_sdpa, 50)
+        # bound: each (cache lane, slot) row the ancestry names is read once
+        a = anc.cpu().numpy()[:, :, :slot + 1]
+        pairs = int(sum(len(np.unique(a[:, :, t][i])) for t in range(a.shape[2])
+                        for i in range(a.shape[0])))
+        bk, h, d = q.shape
+        row_bytes = h * d * k.element_size() + (h * 4 if scales else 0)
+        nbytes = (2 * pairs * row_bytes + q.numel() * q.element_size()
+                  + bk * (slot + 1) * 4 + got.numel() * 4)
+        flops = 4 * bk * (slot + 1) * h * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rows[kind] = dict(ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
+                          max_abs_err=err, bound_ms=max(t_bytes, t_ops) * 1e3,
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          bytes=nbytes, flops=flops, lane_slot_pairs=pairs)
+        log(f"K3 beam_attention {kind}: q {tuple(q.shape)} cache {tuple(k.shape)} slot "
+            f"{slot} max_abs_err {err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"gather+SDPA {two_call_ms if two_call_ms is None else round(two_call_ms, 4)} "
+            f"ms, bound {rows[kind]['bound_ms']:.4f} ms ({rows[kind]['bound_by']}: "
+            f"{nbytes} B over {pairs} named (lane, slot) rows = {t_bytes * 1e3:.4f} ms, "
+            f"{flops} FLOP = {t_ops * 1e3:.4f} ms) [{result['card']}]")
+    result["beam_attention"] = rows
+
+
 def phase_reference(np, torch, dev):
     """Small model, same weights and uint8 inputs, on the card (kernels) and
-    on the CPU (plain versions): identical reports and decisions. Inputs
-    are the first seeded batch whose decisions all have margins well above
-    the two devices' f32 disagreement (tests/torch_parity.py)."""
+    on the CPU (plain versions): identical reports and decisions, greedy
+    and at the beam-4 default. The decoder weights are scaled up (x8) so
+    the random decoder's choices are not near-uniform. Inputs are the first
+    seeded batch whose decisions all have margins well above the two
+    devices' f32 disagreement (tests/torch_parity.py)."""
     import copy
     from rgrg_tpu_torch.core import config as TC
     from rgrg_tpu_torch.inference import ReportGenerator
     from rgrg_tpu_torch.models.full_model import RGRG
     from rgrg_tpu_torch.ops.resize import device_preprocess
     from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
-    from tests.torch_parity import greedy_logit_margin, has_parity_margins
+    from tests.torch_parity import (beam_score_margin, greedy_logit_margin,
+                                    has_parity_margins)
 
     cfg = TC.ModelConfig(
         detector=TC.DetectorConfig(backbone_stages=(1, 1, 1, 1),
@@ -238,12 +342,14 @@ def phase_reference(np, torch, dev):
                                  eos_token_id=0, pad_token_id=0))
     cpu = torch.device("cpu")
     p_cpu = RGRG(cfg).init(seed=3, device=cpu)
+    p_cpu["decoder"] = _tree_map(p_cpu["decoder"], lambda t: t * 8.0)
     p_gpu = {"detector": copy.deepcopy(p_cpu["detector"]).to(dev),
-             "decoder": _tree_to(p_cpu["decoder"], dev)}
+             "decoder": _tree_map(p_cpu["decoder"], lambda t: t.to(dev))}
     tok = GPT2Tokenizer.dummy()
     g_cpu = ReportGenerator(p_cpu, tok, cfg=cfg)
     g_gpu = ReportGenerator(p_gpu, tok, cfg=cfg)
     shape = (1024, 768)  # exact 2x downscale: both devices preprocess identically
+    max_length, min_gap = 12, 1e-4
     for seed in range(24):
         images = list(np.random.default_rng(seed).integers(0, 256, (2, *shape),
                                                            dtype=np.uint8))
@@ -252,29 +358,34 @@ def phase_reference(np, torch, dev):
         if not has_parity_margins(p_cpu["detector"], x):
             continue
         det = RGRG(cfg).detect(p_cpu, x)
-        if greedy_logit_margin(p_cpu["decoder"], det["region_features"].reshape(-1, 1024),
-                               cfg.decoder, 12) >= 3e-5:
+        feats = det["region_features"][det["selected_regions"]]
+        if (feats.shape[0]
+                and greedy_logit_margin(p_cpu["decoder"], feats, cfg.decoder,
+                                        max_length) >= min_gap
+                and beam_score_margin(p_cpu["decoder"], feats, cfg.decoder, max_length,
+                                      cfg.generation.num_beams, True) >= min_gap):
             break
     else:
         raise RuntimeError("no seeded reference input with decision margins")
-    want = g_cpu.generate_reports(images, max_length=12)
-    got = g_gpu.generate_reports(images, max_length=12)
-    for g, w in zip(got, want):
-        check(g.report == w.report, "card report != CPU report")
-        check(g.region_sentences == w.region_sentences, "card sentences != CPU")
-        check(np.array_equal(g.selected_regions, w.selected_regions), "selection differs")
-        check(np.array_equal(g.class_detected, w.class_detected), "detections differ")
-        check(np.allclose(g.top_region_boxes, w.top_region_boxes, rtol=1e-4, atol=1e-2),
-              "boxes differ")
-    n_sel = int(sum(r.selected_regions.sum() for r in got))
-    log(f"reference: input seed {seed}, 2 images, {n_sel} regions decoded: card == "
-        f"CPU (reports, sentences, selection, detections; boxes within 1e-2 px)")
+    for name, kw in (("greedy", {"num_beams": 1}), ("beam-4 default", {})):
+        want = g_cpu.generate_reports(images, max_length=max_length, **kw)
+        got = g_gpu.generate_reports(images, max_length=max_length, **kw)
+        for g, w in zip(got, want):
+            check(g.report == w.report, f"card report != CPU report ({name})")
+            check(g.region_sentences == w.region_sentences, f"card sentences != CPU ({name})")
+            check(np.array_equal(g.selected_regions, w.selected_regions), "selection differs")
+            check(np.array_equal(g.class_detected, w.class_detected), "detections differ")
+            check(np.allclose(g.top_region_boxes, w.top_region_boxes, rtol=1e-4, atol=1e-2),
+                  "boxes differ")
+        n_sel = int(sum(r.selected_regions.sum() for r in got))
+        log(f"reference ({name}): input seed {seed}, 2 images, {n_sel} regions decoded: "
+            f"card == CPU (reports, sentences, selection, detections; boxes within 1e-2 px)")
 
 
-def _tree_to(tree, dev):
+def _tree_map(tree, fn):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def full_width_config():
@@ -289,9 +400,32 @@ def full_width_config():
     return cfg
 
 
+def serve(np, torch, gen, cfg, requests, **kw):
+    """Answer the requests through generate_reports, each timed on the host
+    clock around synchronized work; check the reports' shape."""
+    times, n_regions = [], []
+    for reqs in requests:
+        t0 = time.perf_counter()
+        reports = gen.generate_reports(reqs, max_length=MAX_LENGTH, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(len(reports) == BATCH, "wrong number of reports")
+        for r in reports:
+            check(isinstance(r.report, str), "report is not text")
+            check(r.top_region_boxes.shape == (29, 4)
+                  and np.isfinite(r.top_region_boxes).all(), "bad region boxes")
+            check(len(r.region_sentences) == int(r.selected_regions.sum()),
+                  "a selected region has no sentence")
+        n_regions.append(int(sum(r.selected_regions.sum() for r in reports)))
+    steady = sum(times[1:]) / len(times[1:])
+    return times, steady, n_regions
+
+
 def phase_main(np, torch, dev, result, cfg, raw_shape=RAW_SHAPE):
+    from rgrg_tpu_torch.decode.beam import beam_generate
     from rgrg_tpu_torch.inference import ReportGenerator
     from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
     from rgrg_tpu_torch.ops.nms import nms_keep_mask
     from rgrg_tpu_torch.ops.roi_align import roi_align
     from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
@@ -309,83 +443,100 @@ def phase_main(np, torch, dev, result, cfg, raw_shape=RAW_SHAPE):
     check(all(t.device.type == dev.type for t in tensors), "a parameter is off the card")
     n_params = sum(t.numel() for t in tensors)
     gen = ReportGenerator(params, GPT2Tokenizer.dummy(), cfg=cfg)
+    check(cfg.generation.num_beams == BEAMS, "the default decode is not beam 4")
     rng = np.random.default_rng(7)
     requests = [list(rng.integers(0, 256, (BATCH, *raw_shape), dtype=np.uint8))
                 for _ in range(REQUESTS)]
     log(f"main path: random params {n_params / 1e6:.1f} M tensors on {dev} "
         f"(init {init_s:.1f} s); {REQUESTS} requests x {BATCH} uint8 {raw_shape}")
-
-    torch.cuda.reset_peak_memory_stats()
-    nms_keep_mask.launches = 0
-    roi_align.launches = 0
-    times, n_regions = [], []
-    for reqs in requests:
-        t0 = time.perf_counter()
-        reports = gen.generate_reports(reqs, max_length=MAX_LENGTH)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        check(len(reports) == BATCH, "wrong number of reports")
-        for r in reports:
-            check(isinstance(r.report, str), "report is not text")
-            check(r.top_region_boxes.shape == (29, 4)
-                  and np.isfinite(r.top_region_boxes).all(), "bad region boxes")
-            check(len(r.region_sentences) == int(r.selected_regions.sum()),
-                  "a selected region has no sentence")
-        n_regions.append(int(sum(r.selected_regions.sum() for r in reports)))
-    launches = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches}
     chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
-    check(launches["nms"] == REQUESTS, f"NMS launches {launches['nms']} != {REQUESTS}")
-    check(launches["roi_align"] == REQUESTS * chunks,
-          f"RoIAlign launches {launches['roi_align']} != {REQUESTS * chunks}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steady = sum(times[1:]) / len(times[1:])
-    log(f"main path: ms per request {['%.1f' % t for t in times]} (first includes "
-        f"warm-up), steady {steady:.1f} ms = {BATCH / steady * 1e3:.2f} reports/s; "
-        f"regions decoded per request {n_regions}; launches {launches}; "
-        f"peak {peak_gb:.1f} GB [{result['card']}]")
+    layers = cfg.decoder.num_layers
 
-    # int8 KV cache: re-decode the last request's selected regions
+    def reset_counts():
+        nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+        beam_generate.steps = 0
+
+    def read_counts():
+        return {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+                "beam_attention": beam_attention.launches}
+
+    paths = {}
+    for name, kw in (("greedy", {"num_beams": 1}), ("beam4", {})):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, steady, n_regions = serve(np, torch, gen, cfg, requests, **kw)
+        launches, steps = read_counts(), beam_generate.steps
+        check(launches["nms"] == REQUESTS, f"{name}: NMS launches {launches['nms']} != "
+              f"{REQUESTS}")
+        check(launches["roi_align"] == REQUESTS * chunks,
+              f"{name}: RoIAlign launches {launches['roi_align']} != {REQUESTS * chunks}")
+        if name == "greedy":
+            check(launches["beam_attention"] == 0 and steps == 0,
+                  "the greedy path ran beam search")
+        else:
+            check(steps > 0 and launches["beam_attention"] == layers * steps,
+                  f"beam attention launches {launches['beam_attention']} != {layers} x "
+                  f"{steps} decode steps")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"main path {name}: ms per request {['%.1f' % t for t in times]} (first "
+            f"includes warm-up), steady {steady:.1f} ms = {BATCH / steady * 1e3:.2f} "
+            f"reports/s; regions decoded per request {n_regions}; launches {launches}, "
+            f"beam decode steps {steps}; peak {peak_gb:.1f} GB [{result['card']}]")
+        paths[name] = dict(ms_per_request=times, steady_ms=steady,
+                           reports_per_s=BATCH / steady * 1e3, regions=n_regions,
+                           launches=launches, beam_steps=steps, peak_gb=peak_gb)
+
+    # int8 KV cache: re-decode the last request's selected regions, greedy
+    # and beam 4 (the beam decode runs K3's int8 variant)
     model = gen.model
     raw, mats = gen.preprocess_raw(requests[-1])
     det = model.detect(params, raw, mats)
     check(all(v.device.type == dev.type for v in det.values()), "detector output off the card")
     sel = det["selected_regions"]
 
-    def decode(kv):
+    def decode(kv, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
         ids, dec = model.decode_selected_cascade(params, det["region_features"], sel,
-                                                 MAX_LENGTH, kv_cache_dtype=kv)
+                                                 MAX_LENGTH, kv_cache_dtype=kv, **kw)
         torch.cuda.synchronize()
         return ids, dec, (time.perf_counter() - t) * 1e3
 
-    ids16, dec16, ms16 = decode(None)
-    ids8, dec8, ms8 = decode(torch.int8)
-    check(ids8.device.type == dev.type and tuple(ids8.shape) == (BATCH, 29, MAX_LENGTH),
-          "int8 decode output")
-    check(torch.equal(dec8, sel), "int8 decode skipped a selected region")
-    valid = ids8[sel]
-    check(bool((valid[:, 0] == cfg.decoder.bos_token_id).all())
-          and int(valid.min()) >= 0 and int(valid.max()) < cfg.decoder.vocab_size,
-          "int8 decode ids out of range")
-    agree = (ids8[sel] == ids16[sel]).float().mean().item()
-    log(f"int8 KV decode: {int(sel.sum())} regions, {ms8:.1f} ms (bf16 cache "
-        f"{ms16:.1f} ms); token agreement with the bf16 cache {agree:.3f} "
-        f"[{result['card']}]")
-    result["main"] = dict(ms_per_request=times, steady_ms=steady,
-                          reports_per_s=BATCH / steady * 1e3, regions=n_regions,
-                          launches=launches, peak_gb=peak_gb, init_s=init_s,
-                          int8_decode_ms=ms8, bf16_decode_ms=ms16,
-                          int8_bf16_token_agreement=agree, params_m=n_params / 1e6)
-    result["breakdown"] = breakdown(torch, gen, params, requests[-1], ms16, steady)
-    return launches
+    decodes = {}
+    for name, kw in (("greedy", {}), ("beam4", {"num_beams": BEAMS, "early_stopping": True})):
+        launches0 = beam_attention.launches
+        ids16, dec16, ms16 = decode(None, **kw)
+        ids8, dec8, ms8 = decode(torch.int8, **kw)
+        if name == "beam4":
+            check(beam_attention.launches > launches0, "int8 beam decode skipped K3")
+        check(ids8.device.type == dev.type and tuple(ids8.shape) == (BATCH, 29, MAX_LENGTH),
+              "int8 decode output")
+        check(torch.equal(dec8, sel), "int8 decode skipped a selected region")
+        valid = ids8[sel]
+        check(bool((valid[:, 0] == cfg.decoder.bos_token_id).all())
+              and int(valid.min()) >= 0 and int(valid.max()) < cfg.decoder.vocab_size,
+              "int8 decode ids out of range")
+        agree = (ids8[sel] == ids16[sel]).float().mean().item()
+        log(f"int8 KV decode {name}: {int(sel.sum())} regions, {ms8:.1f} ms (bf16 cache "
+            f"{ms16:.1f} ms); token agreement with the bf16 cache {agree:.3f} "
+            f"[{result['card']}]")
+        decodes[name] = dict(int8_decode_ms=ms8, bf16_decode_ms=ms16,
+                             int8_bf16_token_agreement=agree)
+    result["main"] = dict(paths=paths, decodes=decodes, init_s=init_s,
+                          params_m=n_params / 1e6)
+    result["breakdown"] = {
+        name: breakdown(torch, gen, params, requests[-1], decodes[name]["bf16_decode_ms"],
+                        paths[name]["steady_ms"], name, **kw)
+        for name, kw in (("greedy", {"num_beams": 1}), ("beam4", {}))}
+    return paths["beam4"]["launches"]
 
 
-def breakdown(torch, gen, params, images, decode_ms, steady_ms):
+def breakdown(torch, gen, params, images, decode_ms, steady_ms, name, **kw):
     """Where a request's time goes: the host-side upload, the detector and
     the decode cascade timed apart (host clock around synchronized work),
-    then one whole request under torch.profiler for device busy time by
-    kernel. Runs after the launch counters were read."""
+    then one whole request (generate_reports with `kw`) under
+    torch.profiler for device busy time by kernel. Runs after the launch
+    counters were read."""
     model = gen.model
 
     def timed(fn, reps=3):
@@ -400,7 +551,7 @@ def breakdown(torch, gen, params, images, decode_ms, steady_ms):
 
     (raw, mats), upload_ms = timed(lambda: gen.preprocess_raw(images))
     _, detect_ms = timed(lambda: model.detect(params, raw, mats))
-    log(f"breakdown: upload {upload_ms:.1f} ms, detect {detect_ms:.1f} ms, "
+    log(f"breakdown {name}: upload {upload_ms:.1f} ms, detect {detect_ms:.1f} ms, "
         f"decode cascade {decode_ms:.1f} ms (bf16 cache)")
     out = {"upload_ms": upload_ms, "detect_ms": detect_ms, "decode_ms": decode_ms}
 
@@ -409,7 +560,7 @@ def breakdown(torch, gen, params, images, decode_ms, steady_ms):
                  acc_events=True) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        gen.generate_reports(images, max_length=MAX_LENGTH)
+        gen.generate_reports(images, max_length=MAX_LENGTH, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
 
@@ -424,13 +575,14 @@ def breakdown(torch, gen, params, images, decode_ms, steady_ms):
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms <= 0:
-        log("breakdown: profiler saw no device time (device busy share not measured)")
+        log(f"breakdown {name}: profiler saw no device time (device busy share not "
+            "measured)")
         out["profile"] = None
         return out
     top = [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "calls": e.count}
            for e in events[:12] if dev_us(e) > 0]
     launches = sum(e.count for e in events)
-    log(f"breakdown: device busy {busy_ms:.1f} ms in one request ({launches} device "
+    log(f"breakdown {name}: device busy {busy_ms:.1f} ms in one request ({launches} device "
         f"ops); idle share {1 - busy_ms / steady_ms:.1%} of the unprofiled "
         f"{steady_ms:.1f} ms request ({1 - busy_ms / wall_ms:.1%} of the profiled "
         f"{wall_ms:.1f} ms)")
@@ -440,6 +592,15 @@ def breakdown(torch, gen, params, images, decode_ms, steady_ms):
                       "idle_share": 1 - busy_ms / steady_ms,
                       "idle_share_profiled": 1 - busy_ms / wall_ms,
                       "device_ops": launches, "top": top}
+    # the kernels' own device time on this path, at the shapes it gives them
+    for kernel in ("nms_keep_mask_kernel", "roi_align_kernel", "beam_attn_kernel"):
+        hits = [e for e in events if kernel in e.key]
+        calls = sum(e.count for e in hits)
+        if calls:
+            ms = sum(dev_us(e) for e in hits) / 1e3
+            log(f"breakdown {name}: {kernel} {ms:.2f} ms of device time in {calls} "
+                f"launches ({ms / calls * 1e3:.1f} us each)")
+            out["profile"][kernel] = {"device_ms": ms, "calls": calls}
     return out
 
 
@@ -480,10 +641,11 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s}
     phase_nms(np, torch, dev, result)
     phase_roi(np, torch, dev, result)
+    phase_beam_attn(np, torch, dev, result)
     phase_reference(np, torch, dev)
     launches = phase_main(np, torch, dev, result, full_width_config())
 
-    k1, k2 = result["nms"], result["roi_align"]["bf16"]
+    k1, k2, k3 = result["nms"], result["roi_align"]["bf16"], result["beam_attention"]["bf16"]
     kernels_line = {"kernels": [
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
@@ -497,6 +659,12 @@ def main() -> int:
          "launches": launches["roi_align"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "beam_attention", "route": "cuda",
+         "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
+         "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
+         "launches": launches["beam_attention"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]}
     result["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,8 +1,9 @@
 """Typed configuration of the inference path (the port's own copy).
 
 Field names and defaults equal the JAX package's configs so the two can be
-built side by side. Only the settings the greedy serving path reads are
-kept; training-only settings arrive with the training slice. There is no
+built side by side. Only the settings the serving paths (greedy and beam
+search) read are kept; training-only settings arrive with the training
+slice. There is no
 NMS or RoIAlign implementation knob: the detector always calls
 ops.nms.nms_keep_mask and ops.roi_align.roi_align, which dispatch on the
 tensor's device (plain PyTorch on the CPU, the hand-written kernel on CUDA).
@@ -106,6 +107,10 @@ class DecoderConfig:
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     max_length: int = 300
+    # the product default: beam 4 (with early stopping at the
+    # ReportGenerator entry points)
+    num_beams: int = 4
+    length_penalty: float = 1.0
     # static KV-cache length buckets of the decode cascade
     length_buckets: Tuple[int, ...] = (64, 128, 304)
 

@@ -1,10 +1,13 @@
-"""Product inference API: uint8 X-rays in, radiology reports out (greedy).
+"""Product inference API: uint8 X-rays in, radiology reports out.
 
 Images of one shape per batch are uploaded as raw uint8 and resized,
 padded and normalized on the device (ops/resize.py), the batch runs
-through the detector and one batched decode of all selected regions, and
-the host assembles one report per image with exact sentence dedup (soft
-dedup takes a caller-supplied `similarity_fn`).
+through the detector and one batched decode of all selected regions (beam
+4 with early stopping by default, as in the JAX package and the reference;
+num_beams=1 is greedy), and the host assembles one report per image with
+exact sentence dedup (soft dedup takes a caller-supplied `similarity_fn`).
+The interactive APIs decode named regions (generate_for_regions) or
+user-drawn boxes (generate_for_boxes) of one image.
 
 Usage:
     params = RGRG(cfg).init(seed=0)              # or core.convert.from_jax_params
@@ -87,16 +90,23 @@ class ReportGenerator:
         raw = torch.from_numpy(np.stack(arrays)).to(self.device)
         return raw, self._resize_mats(shape)
 
+    def _decode_args(self, num_beams: Optional[int], max_length: Optional[int]):
+        gen = self.model.cfg.generation
+        return (gen.num_beams if num_beams is None else num_beams,
+                gen.max_length if max_length is None else max_length)
+
     def generate_reports(self, images: Sequence[ImageLike],
-                         num_beams: int = 1,
-                         max_length: Optional[int] = None) -> List[GeneratedReport]:
-        """Greedy reports for a batch of same-shape uint8 X-rays (or paths)."""
-        cfg = self.model.cfg
-        if max_length is None:
-            max_length = cfg.generation.max_length
+                         num_beams: Optional[int] = None,
+                         max_length: Optional[int] = None,
+                         early_stopping: bool = True) -> List[GeneratedReport]:
+        """Reports for a batch of same-shape uint8 X-rays (or paths).
+        num_beams/max_length default to the config's generation settings
+        (beam 4, 300 tokens)."""
+        num_beams, max_length = self._decode_args(num_beams, max_length)
         raw, mats = self.preprocess_raw(images)
         out = self.model.generate(self.params, raw, max_length=max_length,
-                                  num_beams=num_beams, resize_mats=mats)
+                                  num_beams=num_beams,
+                                  early_stopping=early_stopping, resize_mats=mats)
         ids = out["output_ids"].cpu().numpy()
 
         results = []
@@ -116,3 +126,45 @@ class ReportGenerator:
                 class_detected=out["class_detected"][b],
                 top_region_boxes=out["detections"]["top_region_boxes"][b]))
         return results
+
+    # -------------------- interactive APIs --------------------
+
+    def generate_for_regions(self, image: ImageLike, region_names: Sequence[str],
+                             num_beams: Optional[int] = None,
+                             max_length: Optional[int] = None,
+                             early_stopping: bool = True) -> Dict[str, str]:
+        """Anatomy-based generation: sentences for the named regions of one
+        image, those the detector found."""
+        num_beams, max_length = self._decode_args(num_beams, max_length)
+        raw, mats = self.preprocess_raw([image])
+        det = self.model.detect(self.params, raw, mats)
+        mask = torch.zeros((1, C.NUM_REGIONS), dtype=torch.bool, device=self.device)
+        for name in region_names:
+            mask[0, C.ANATOMICAL_REGIONS[name]] = True
+        mask &= det["class_detected"]
+        ids, decoded = self.model.decode_selected(
+            self.params, det["region_features"], mask,
+            self.model.budget_for(int(mask.sum()), 1), max_length,
+            num_beams=num_beams, early_stopping=early_stopping)
+        ids, decoded = ids.cpu().numpy(), decoded.cpu().numpy()
+        return {name: self.tokenizer.decode(ids[0, C.ANATOMICAL_REGIONS[name]],
+                                            skip_special_tokens=True)
+                for name in region_names if decoded[0, C.ANATOMICAL_REGIONS[name]]}
+
+    @torch.inference_mode()
+    def generate_for_boxes(self, image: ImageLike, boxes: np.ndarray,
+                           num_beams: Optional[int] = None,
+                           max_length: Optional[int] = None,
+                           early_stopping: bool = True) -> List[str]:
+        """Selection-based generation: one sentence per user-drawn box
+        ([N, 4] xyxy in the 512-pixel model frame), RoI-pooled straight from
+        the backbone's map, bypassing the RPN."""
+        num_beams, max_length = self._decode_args(num_beams, max_length)
+        raw, mats = self.preprocess_raw([image])
+        det = self.params["detector"]
+        feats = det.backbone(self.model._prepare_images(raw, mats))
+        bx = torch.as_tensor(np.asarray(boxes, np.float32)[None], device=self.device)
+        region = det.region_features_from_boxes(feats, bx)[0]          # [N, 1024]
+        ids, _ = self.model.decode_rows(self.params, region, max_length,
+                                        num_beams, early_stopping)
+        return [self.tokenizer.decode(row) for row in ids.cpu().numpy()]

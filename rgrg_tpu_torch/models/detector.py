@@ -8,9 +8,9 @@
   - the region-selection and region-abnormal classifiers run in the same
     forward; "nothing selected" is an all-False `selected_regions` mask.
 
-Ties break by the lower index everywhere, as in the reference: the top-k is
-a stable descending sort, the compactions stable sorts, and argmax returns
-the first maximum.
+Ties break by the lower index everywhere, as in the reference: the top-k
+keeps lax.top_k's order (ops/topk.py), the compactions are stable sorts,
+and argmax returns the first maximum.
 """
 
 from __future__ import annotations
@@ -32,13 +32,7 @@ from rgrg_tpu_torch.ops import anchors as anchors_lib
 from rgrg_tpu_torch.ops import boxes as box_ops
 from rgrg_tpu_torch.ops.nms import nms_keep_mask
 from rgrg_tpu_torch.ops.roi_align import roi_align
-
-
-def stable_topk(x: torch.Tensor, k: int):
-    """Top-k along the last dim, ties broken by the lower index
-    (lax.top_k's order; torch.topk promises none)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+from rgrg_tpu_torch.ops.topk import stable_topk
 
 
 def filter_proposals(proposals: torch.Tensor, objectness: torch.Tensor,

@@ -2,13 +2,13 @@
 
 The selected (image, region) pairs are stably compacted to the front (the
 order of the boolean-mask flattening), padded to a static row budget from
-the {2^k, 3*2^k} ladder, decoded as one batch and scattered back to
-[B, 29, L]. Padding rows are born finished, so an empty selection costs
-almost nothing. The decode runs through a ladder of KV-cache length
-buckets (64/128/304): everything at a short cache first, then only the rows
-that hit the cap at the next bucket. Greedy decoding is prefix-
-deterministic, so a row that finishes inside a bucket is identical to the
-full-length decode.
+the {2^k, 3*2^k} ladder, decoded as one batch (greedy, or beam search with
+num_beams > 1) and scattered back to [B, 29, L]. Padding rows are born
+finished, so an empty selection costs almost nothing. The decode runs
+through a ladder of KV-cache length buckets (64/128/304): everything at a
+short cache first, then only the rows that need it at the next bucket
+(decode_selected_cascade says why each mode's bucket results equal the
+full-length decode).
 
 Params are {"detector": RegionDetector (nn.Module), "decoder": dict of
 tensors} (RGRG.init, or core/convert.py from the JAX package's tree).
@@ -24,6 +24,7 @@ import torch
 from rgrg_tpu_torch.core import constants as C
 from rgrg_tpu_torch.core.config import ModelConfig
 from rgrg_tpu_torch.core.device import DeviceLike, resolve_device
+from rgrg_tpu_torch.decode.beam import beam_generate
 from rgrg_tpu_torch.decode.greedy import greedy_generate
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.models.detector import RegionDetector
@@ -100,55 +101,93 @@ class RGRG:
             return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         return det(images, logit_threshold=thr)
 
+    def decode_rows(self, params: Params, features: torch.Tensor, max_length: int,
+                    num_beams: int = 1, early_stopping: bool = False,
+                    active: Optional[torch.Tensor] = None,
+                    kv_cache_dtype: Optional[torch.dtype] = None):
+        """Decode region features [N, 1024] row by row: greedy, or beam
+        search when num_beams > 1. Returns (ids [N, max_length], done): done
+        is beam search's [N] mask of searches closed before max_length,
+        None for greedy."""
+        if num_beams > 1:
+            return beam_generate(
+                params["decoder"], features, self.cfg.decoder,
+                max_length=max_length, num_beams=num_beams,
+                length_penalty=self.cfg.generation.length_penalty,
+                early_stopping=early_stopping, active=active,
+                cache_dtype=kv_cache_dtype, return_done=True)
+        return greedy_generate(params["decoder"], features, self.cfg.decoder,
+                               max_length=max_length, active=active,
+                               cache_dtype=kv_cache_dtype), None
+
     @torch.inference_mode()
     def decode_selected(self, params: Params, region_features: torch.Tensor,
                         selected_regions: torch.Tensor, r_budget: int,
-                        max_length: int, kv_cache_dtype: Optional[torch.dtype] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Compact the selected regions to r_budget rows, greedy-decode them,
-        scatter back. region_features [B, 29, 1024]; selected_regions
-        [B, 29] bool. Returns (output_ids [B, 29, max_length],
-        decoded_mask [B, 29]): decoded_mask marks the regions whose row fit
-        in the budget."""
+                        max_length: int, kv_cache_dtype: Optional[torch.dtype] = None,
+                        num_beams: int = 1, early_stopping: bool = False,
+                        return_done: bool = False):
+        """Compact the selected regions to r_budget rows, decode them
+        (greedy, or beam search when num_beams > 1), scatter back.
+        region_features [B, 29, 1024]; selected_regions [B, 29] bool.
+        Returns (output_ids [B, 29, max_length], decoded_mask [B, 29]):
+        decoded_mask marks the regions whose row fit in the budget.
+        return_done (beam search only) adds a [B, 29] bool mask of the rows
+        whose search closed before max_length (beam_generate), the
+        cascade's test of a final row."""
+        if return_done and num_beams <= 1:
+            raise ValueError("return_done is a beam-search signal (num_beams > 1)")
         b = region_features.shape[0]
         pad = self.cfg.decoder.pad_token_id
         flat_feats = region_features.reshape(b * C.NUM_REGIONS, -1)
         sel = selected_regions.reshape(-1)
         idx = stable_compaction(sel)[:r_budget]
         active = sel[idx]
-        ids = greedy_generate(params["decoder"], flat_feats[idx],
-                              self.cfg.decoder, max_length=max_length,
-                              active=active, cache_dtype=kv_cache_dtype)
-        out = torch.full((b * C.NUM_REGIONS, max_length), pad,
-                         dtype=torch.long, device=ids.device)
-        out[idx] = torch.where(active[:, None], ids, pad)
-        decoded = torch.zeros(b * C.NUM_REGIONS, dtype=torch.bool, device=ids.device)
-        decoded[idx] = active
-        return (out.reshape(b, C.NUM_REGIONS, max_length),
-                decoded.reshape(b, C.NUM_REGIONS))
+        ids, row_done = self.decode_rows(params, flat_feats[idx], max_length,
+                                         num_beams, early_stopping, active,
+                                         kv_cache_dtype)
+
+        def scatter(rows: torch.Tensor, fill) -> torch.Tensor:
+            full = torch.full((b * C.NUM_REGIONS,) + rows.shape[1:], fill,
+                              dtype=rows.dtype, device=rows.device)
+            full[idx] = rows
+            return full.reshape((b, C.NUM_REGIONS) + rows.shape[1:])
+
+        out = scatter(torch.where(active[:, None], ids, pad), pad)
+        decoded = scatter(active, False)
+        if return_done:
+            return out, decoded, scatter(row_done & active, False)
+        return out, decoded
 
     def detect_and_decode(self, params: Params, images: torch.Tensor,
                           selected_regions: Optional[torch.Tensor],
                           r_budget: int, max_length: int,
                           kv_cache_dtype: Optional[torch.dtype] = None,
-                          resize_mats=None, image_chunk: Optional[int] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          resize_mats=None, image_chunk: Optional[int] = None,
+                          num_beams: int = 1, early_stopping: bool = False,
+                          return_done: bool = False) -> Dict[str, torch.Tensor]:
         """Detector + one budgeted decode. selected_regions=None decodes the
         detector's own selection; rows beyond r_budget stay undecoded, as
-        in decode_selected (the caller checks the count)."""
+        in decode_selected (the caller checks the count). return_done adds
+        "decode_done" (beam search only)."""
         det = self.detect(params, images, resize_mats, image_chunk=image_chunk)
         sel = det["selected_regions"] if selected_regions is None else selected_regions
-        ids, decoded = self.decode_selected(params, det["region_features"], sel,
-                                            r_budget, max_length,
-                                            kv_cache_dtype=kv_cache_dtype)
-        return {
-            "output_ids": ids,
-            "decoded_mask": decoded,
+        res = self.decode_selected(params, det["region_features"], sel,
+                                   r_budget, max_length,
+                                   kv_cache_dtype=kv_cache_dtype,
+                                   num_beams=num_beams,
+                                   early_stopping=early_stopping,
+                                   return_done=return_done)
+        out = {
+            "output_ids": res[0],
+            "decoded_mask": res[1],
             "selected_regions": sel,
             "class_detected": det["class_detected"],
             "top_region_boxes": det["top_region_boxes"],
             "selection_logits": det["selection_logits"],
         }
+        if return_done:
+            out["decode_done"] = res[2]
+        return out
 
     @torch.inference_mode()
     def decode_selected_cascade(self, params: Params,
@@ -157,11 +196,23 @@ class RGRG:
                                 max_length: int,
                                 kv_cache_dtype: Optional[torch.dtype] = None,
                                 buckets: Optional[Tuple[int, ...]] = None,
-                                first_count: Optional[int] = None
+                                first_count: Optional[int] = None,
+                                num_beams: int = 1, early_stopping: bool = False
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Greedy decode through the static length-bucket ladder; one host
-        read of the remaining-row count per bucket used (`first_count`
-        supplies the first when the caller has it).
+        """Decode (greedy or beam) through the static length-bucket ladder;
+        one host read of the remaining-row count per bucket used
+        (`first_count` supplies the first when the caller has it).
+
+        Why a bucket's rows equal the full-length decode:
+          * greedy is prefix-deterministic: a row that finishes (EOS) inside
+            the bucket is final; rows whose last slot holds a real token
+            re-decode at the next bucket;
+          * beam: a row is final when its search CLOSED (`done`, which
+            depends on cur_len only, never on the cap) and its best
+            hypothesis plus EOS fit the bucket. A closed search adds nothing
+            to its pool and has no live beams, so finalize reads the same
+            pool under any longer cap; every other row re-decodes from
+            scratch at the next bucket, which is the longer cap's decode.
         Returns (output_ids [B, 29, max_length], decoded_mask [B, 29])."""
         b = region_features.shape[0]
         pad = self.cfg.decoder.pad_token_id
@@ -180,9 +231,12 @@ class RGRG:
                      else int(remaining.sum()))
             if output_ids is not None and n_rem == 0:
                 break
-            ids_b, dec_b = self.decode_selected(
+            res = self.decode_selected(
                 params, region_features, remaining, self.budget_for(n_rem, b),
-                bucket, kv_cache_dtype=kv_cache_dtype)
+                bucket, kv_cache_dtype=kv_cache_dtype, num_beams=num_beams,
+                early_stopping=early_stopping,
+                return_done=num_beams > 1 and bucket < max_length)
+            ids_b, dec_b = res[0], res[1]
             ids_b = torch.nn.functional.pad(ids_b, (0, max_length - bucket),
                                             value=pad)
             if output_ids is None:
@@ -193,8 +247,12 @@ class RGRG:
             if bucket >= max_length:
                 break
             # rows that filled the bucket without finishing (pad == eos, so
-            # an unfinished row's last slot holds a real token)
-            remaining = remaining & dec_b & (ids_b[:, :, bucket - 1] != pad)
+            # an unfinished row's last slot holds a real token), and for
+            # beam search every row whose search is still open
+            unfinished = ids_b[:, :, bucket - 1] != pad
+            if num_beams > 1:
+                unfinished = unfinished | ~res[2]
+            remaining = remaining & dec_b & unfinished
         return output_ids, decoded_mask
 
     def budget_for(self, num_selected: int, batch: int) -> int:
@@ -205,22 +263,27 @@ class RGRG:
 
     def generate(self, params: Params, images: torch.Tensor,
                  max_length: Optional[int] = None, num_beams: int = 1,
-                 resize_mats=None) -> Dict[str, Any]:
-        """Full greedy inference for a batch: images as for `detect`.
-        Returns output ids [B, 29, L] (a tensor on the device) plus the
-        selection, decoded mask and detections as numpy arrays."""
-        if num_beams != 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) arrives with the port's beam-4 "
-                "slice; this slice decodes greedily (num_beams=1)")
+                 early_stopping: bool = False, resize_mats=None,
+                 selection_override=None
+                 ) -> Dict[str, Any]:
+        """Full inference for a batch: images as for `detect`. num_beams=1
+        is greedy; the product default, beam 4 with early stopping, is
+        what ReportGenerator asks for. selection_override: an optional
+        [B, 29] bool mask decoded instead of the classifier's selection
+        (caller-chosen regions). Returns output ids [B, 29, L] (a tensor on
+        the device) plus the selection, decoded mask and detections as
+        numpy arrays."""
         if max_length is None:
             max_length = self.cfg.generation.max_length
         det = self.detect(params, images, resize_mats)
-        sel = det["selected_regions"]
+        sel = (det["selected_regions"] if selection_override is None
+               else torch.as_tensor(selection_override,
+                                    device=det["selected_regions"].device))
         num_selected = int(sel.sum())  # the one host read before decoding
         output_ids, decoded_mask = self.decode_selected_cascade(
             params, det["region_features"], sel, max_length,
-            first_count=num_selected)
+            first_count=num_selected, num_beams=num_beams,
+            early_stopping=early_stopping)
         return {
             "output_ids": output_ids,
             "selected_regions": sel.cpu().numpy(),

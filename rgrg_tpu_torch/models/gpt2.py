@@ -14,7 +14,10 @@ same keys and layouts):
 
 The KV cache is a static [L, B, H, 1+T, D] buffer (bf16/f32, or int8 with
 per-(layer, row, head, slot) absmax scales) that decode_step updates in
-place: one slot per layer per step, no reallocation.
+place: one slot per layer per step, no reallocation. Beam search moves it
+once, after prefill, to per-layer head-leading buffers [H, B*K, 1+T, D]
+(cache_to_beam_layers) that decode_step_beam updates in place and reads
+through the ancestry table (ops/beam_attn.py, kernel K3 on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from rgrg_tpu_torch.core.config import DecoderConfig
+from rgrg_tpu_torch.ops.beam_attn import beam_attention
 
 Params = Dict[str, Any]
 
@@ -111,13 +115,15 @@ def feature_transform(params: Params, image_features: torch.Tensor) -> torch.Ten
     return _dense(F.relu(_dense(image_features, p["fc0"])), p["fc1"])
 
 
+def _attn_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """1/sqrt(D) evaluated in the query's dtype, as the reference does."""
+    return torch.tensor(float(head_dim), dtype=dtype).sqrt().reciprocal().item()
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """q [B,H,S,D] x k/v [B,H,T,D] with additive bias [.., S, T] (0 or -1e4)."""
-    d = v.shape[-1]
-    # 1/sqrt(D) evaluated in the query's dtype, as the reference does
-    scale = torch.tensor(float(d), dtype=q.dtype).sqrt().reciprocal().item()
-    w = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
+    w = torch.einsum("bhsd,bhtd->bhst", q, k) * _attn_scale(v.shape[-1], q.dtype)
     w = torch.softmax(w + bias, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bhtd->bhsd", w, v)
 
@@ -253,6 +259,66 @@ def decode_step(params: Params, token: torch.Tensor, step: int,
         a = _attention(qh, _cache_read(cache, "k", i, x.dtype),
                        _cache_read(cache, "v", i, x.dtype), bias)
         x = x + _dense(_merge_heads(a), bp["attn"]["c_proj"])
+        x = _mlp(x, bp, cfg)
+
+    return _logits(params, x, cfg), cache
+
+
+def cache_to_beam_layers(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Prefill cache [L, B*K, H, T, *] -> per-layer head-leading buffers
+    {"k_0": [H, B*K, T, *], ..., "v_23", and "k_scale_i"/"v_scale_i" for
+    int8}, each contiguous (one copy, after prefill).
+
+    The JAX package can also merge adjacent head pairs into the last dim
+    (pack_pairs) to avoid the TPU's 128-lane padding of 64-wide rows; its
+    outputs are identical either way, and a 64-dim bf16 row is already 128
+    bytes on the card, so the port keeps the unpacked layout only."""
+    return {f"{name}_{i}": c[i].transpose(0, 1).contiguous()
+            for name, c in cache.items() for i in range(c.shape[0])}
+
+
+def decode_step_beam(params: Params, token: torch.Tensor, step: int,
+                     cache: Dict[str, torch.Tensor], ancestry: torch.Tensor,
+                     cfg: DecoderConfig):
+    """One beam-search step with ancestry-masked attention, updating `cache`
+    in place.
+
+    token [B*K] (row b*K + k: beam k of item b), generated at position
+    `step` (cache slot step+2); cache from cache_to_beam_layers; ancestry
+    [B, K, T] int32: for each item, live beam and slot, the beam whose
+    lane holds that slot's K/V. The cache is never reordered: beam
+    reordering rewrites only the ancestry table, and every layer's
+    attention reads the named rows (ops/beam_attn.beam_attention, kernel K3
+    on the card). Returns (logits [B*K, vocab], cache)."""
+    bk = token.shape[0]
+    wte = params["wte"]["embedding"]
+    pos = torch.full((bk, 1), step + 1, dtype=torch.long, device=wte.device)
+    x = wte[token[:, None]] + _positions_embed(params, pos, cfg)
+    slot = step + 2
+    h, d = cfg.num_heads, cfg.head_dim
+    quantized = cache["k_0"].dtype == torch.int8
+    scale = _attn_scale(d, x.dtype)
+
+    for i in range(cfg.num_layers):
+        bp = params[f"h_{i}"]
+        qkv = _dense(_layer_norm(x, bp["ln_1"], cfg.layer_norm_eps),
+                     bp["attn"]["c_attn"])
+        q, k_w, v_w = torch.split(qkv, cfg.hidden_dim, dim=-1)
+        kh = k_w.reshape(bk, h, d).transpose(0, 1)                   # [H,BK,D]
+        vh = v_w.reshape(bk, h, d).transpose(0, 1)
+        if quantized:
+            for name, val in (("k", kh), ("v", vh)):
+                qv, sv = _quantize_kv(val)
+                cache[f"{name}_{i}"][:, :, slot] = qv
+                cache[f"{name}_scale_{i}"][:, :, slot] = sv
+        else:
+            cache[f"k_{i}"][:, :, slot] = kh
+            cache[f"v_{i}"][:, :, slot] = vh
+        ctx = beam_attention(q.reshape(bk, h, d).contiguous(), cache[f"k_{i}"],
+                             cache[f"v_{i}"], ancestry, slot, scale=scale,
+                             k_scale=cache.get(f"k_scale_{i}"),
+                             v_scale=cache.get(f"v_scale_{i}"))       # [BK,H,D] f32
+        x = x + _dense(ctx.to(x.dtype).reshape(bk, 1, h * d), bp["attn"]["c_proj"])
         x = _mlp(x, bp, cfg)
 
     return _logits(params, x, cfg), cache

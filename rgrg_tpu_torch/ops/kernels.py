@@ -42,6 +42,10 @@ KERNELS = {
     "roi_align": ("roi_align.cu", [], {
         "rgrg_roi_align": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     }),
+    "beam_attn": ("beam_attn.cu", [], {
+        "rgrg_beam_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    }),
 }
 
 

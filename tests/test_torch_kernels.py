@@ -1,5 +1,5 @@
-"""Kernels K1 (csrc/nms.cu) and K2 (csrc/roi_align.cu) against their plain
-PyTorch versions, on the card.
+"""Kernels K1 (csrc/nms.cu), K2 (csrc/roi_align.cu) and K3
+(csrc/beam_attn.cu) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and `nvcc`; they skip where
 torch.cuda.is_available() is false. The file imports neither jax nor
@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from rgrg_tpu_torch.models.gpt2 import _quantize_kv
+from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
 from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
 from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
 
@@ -130,3 +132,32 @@ def test_roi_align_kernel_equals_plain(cuda, dtype):
     assert roi_align.launches == before + 1
     want = roi_align_plain(feats, bx)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("heads,dim,t0", [(16, 64, 0), (4, 16, 0), (2, 100, 1)],
+                         ids=["gpt2_medium", "narrow", "wide_slot0_hidden"])
+def test_beam_attention_kernel_equals_plain(cuda, kind, heads, dim, t0):
+    """Both read the same stored values and compute in f32; they differ
+    only in summation order and the softmax's running rescale (~1e-6)."""
+    rng = np.random.default_rng(heads + dim)
+    items, beams, t, slot = 6, 4, 13, 9
+    bk = items * beams
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.from_numpy(rng.normal(0, 1, (bk, heads, dim)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (heads, bk, t, dim)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    scales = {}
+    if kind == "int8":
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    anc = torch.from_numpy(rng.integers(0, beams, (items, beams, t)).astype(np.int32)).to(cuda)
+    before = beam_attention.launches
+    got = beam_attention(q, k, v, anc, slot, scale=dim ** -0.5, t0=t0, **scales)
+    torch.cuda.synchronize()
+    assert beam_attention.launches == before + 1
+    want = beam_attention_plain(q, k, v, anc, slot, scale=dim ** -0.5, t0=t0, **scales)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
