@@ -16,11 +16,24 @@ Phases (any failed check raises and the script exits non-zero):
      (384 lanes = 96 items x 4 beams, 16 heads, 61 slots, 64 dims, a
      simulated ancestry, slot 31) with f32, bf16 and int8 caches (max abs
      error <= 1e-5 f32, <= 1e-4 bf16/int8);
-  6. reference: a small model (shallow backbone, tiny decoder) serves the
+  6. K4 dense_wint8: kernel vs plain PyTorch at the decoder's four
+     products (K, N) in {(1024, 3072), (1024, 1024), (1024, 4096),
+     (4096, 1024)} at M = 64 and 256 rows, and one ragged shape (5, 96,
+     100), bf16 and f32 x with bias (f32: rtol 2e-5 / atol 2e-4; bf16: one
+     bf16 ulp of the plain output plus the f32 reordering bound), timed
+     with the weights cycled past the L2 cache beside the bf16
+     `torch.addmm` over dequantised weights (a yardstick only);
+  7. reference: a small model (shallow backbone, tiny decoder) serves the
      same uint8 images on the card (kernels) and on the CPU (plain
-     versions), greedy and at the beam-4 default; reports and detector
-     decisions must be identical;
-  7. main path: a full-width ReportGenerator (ResNet-50, 1000 proposals,
+     versions), greedy and at the beam-4 default through generate_reports
+     (host preprocessing); then through generate_reports_pipelined (4
+     batches of 2: three of one shape on the device-resize route, one of
+     mixed shapes on the host route; speculation on, the length cascade
+     continued past its first rung) with weights_int8 off, "xla" and
+     "pallas" on decoder weights snapped to their int8 grid; reports and
+     detector decisions must be identical card vs CPU and across the
+     three weights_int8 values;
+  8. main path: a full-width ReportGenerator (ResNet-50, 1000 proposals,
      bf16 detector; GPT-2 Medium, 24 layers x 1024 wide x 16 heads, vocab
      50257, bf16) with seeded random weights answers 3 requests of 8 raw
      uint8 2048x2500 X-rays through generate_reports (max_length 60),
@@ -28,11 +41,21 @@ Phases (any failed check raises and the script exits non-zero):
      stopping); per request the NMS launch counter must rise by 1, the
      RoIAlign counter by 4, and on the beam path the beam-attention
      counter by 24 per decode step;
-  8. int8 KV cache: the last request's selected regions decoded again,
+  9. int8 KV cache: the last request's selected regions decoded again,
      greedy and beam 4, with kv_cache_dtype=torch.int8;
-  9. breakdown: upload, detect and decode timed apart, and one greedy and
-     one beam request under torch.profiler (device busy share, top
-     kernels).
+ 10. breakdown: host preprocessing + upload, detect and decode timed
+     apart, and one greedy and one beam request under torch.profiler
+     (device busy share, top kernels);
+ 11. serving: generate_reports_pipelined over 4 batches of 8 uint8
+     2048x2500 X-rays (device resize) at the serving defaults (greedy,
+     int8 KV cache, speculation) and max_length 60, once with bf16
+     decoder weights and once with weights_int8="pallas"; at every
+     yielded batch the K4 counter must equal 96 (24 layers x 4 products)
+     x (decode steps + prefills) so far; reports/s over the 4 batches
+     after a warm-up batch (start to last report), one batch's decode
+     time, the CascadeStats snapshot and one profiled batch each;
+     then one mixed-shape batch (2048x2500 and 2500x2048) through the
+     host preprocessing route.
 
 TF32 is off for the comparison phases. Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -42,6 +65,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -53,6 +77,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet) for the bound columns
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+L2_BYTES = 50e6
 SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's ~1.98 GHz boost clock
 
 REQUESTS = 3
@@ -64,6 +90,14 @@ BEAMS = 4            # the product default (GenerationConfig.num_beams)
 # selected regions) x 4 beams, GPT-2 Medium heads, 1 + MAX_LENGTH slots
 K3_SHAPE = dict(items=96, beams=BEAMS, heads=16, slots=1 + MAX_LENGTH, dim=64, slot=31)
 K3_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4}
+# K4 at the decoder's four products per layer (c_attn, attn c_proj, c_fc,
+# mlp c_proj of GPT-2 Medium) at the greedy row budget (64) and at 256 rows
+# (beam lanes), and one ragged shape that tiles nowhere
+K4_PRODUCTS = {"c_attn": (1024, 3072), "attn_c_proj": (1024, 1024),
+               "c_fc": (1024, 4096), "mlp_c_proj": (4096, 1024)}
+K4_ROWS = (64, 256)
+K4_RAGGED = (5, 96, 100)
+SERVE_BATCHES = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -318,6 +352,109 @@ def phase_beam_attn(np, torch, dev, result):
     result["beam_attention"] = rows
 
 
+def cycled(t):
+    """An endless cycle over t and enough copies of it to fill twice the L2
+    cache, so that each use finds its tensor cold."""
+    n = max(1, -(-int(2 * L2_BYTES) // (t.numel() * t.element_size())))
+    return itertools.cycle([t] + [t.clone() for _ in range(n - 1)])
+
+
+def k4_inputs(np, torch, dev, m, k, n, dtype, seed):
+    """x ~ N(0, 1) (a layer-normed activation), GPT-2-like weights
+    ~ N(0, 0.02) quantized per column as gpt2.quantize_decoder_weights does
+    (q int8, scale [1, N] f32), a bias ~ N(0, 0.1) in x's dtype."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    w = rng.normal(0, 0.02, (k, n)).astype(np.float32)
+    s = np.maximum(np.abs(w).max(axis=0, keepdims=True) / np.float32(127), np.float32(1e-12))
+    q = np.clip(np.rint(w / s), -127, 127).astype(np.int8)
+    b = rng.normal(0, 0.1, (n,)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(q).to(dev),
+            torch.from_numpy(s.astype(np.float32)).to(dev), torch.from_numpy(b).to(dev, dtype))
+
+
+def k4_excess(torch, x, q, scale, got, want):
+    """Error of K4 against its plain version beyond the stated tolerance,
+    elementwise (<= 0 everywhere passes), and the count of elements more
+    than one bf16 ulp apart. f32 x: rtol 2e-5 / atol 2e-4. bf16 x: one bf16
+    ulp of the plain output, plus the bound on how far two f32 summation
+    orders of the same products can drift apart, 2 K 2^-24 sum_k |x q| s
+    (it matters only where the sum nearly cancels)."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    if got.dtype == torch.float32:
+        return err - (2e-4 + 2e-5 * w.abs()), 0
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    drift = ((x.float().abs() @ q.float().abs()) * scale.reshape(-1)
+             * (2 * q.shape[0] * 2.0 ** -24))
+    return err - ulp - drift, int((err > ulp).sum())
+
+
+def phase_dense_wint8(np, torch, dev, result):
+    """K4 against its plain version at the decoder's shapes; device time
+    with each launch reading another copy of the weights (over 100 MB of
+    copies in turn, twice the L2), as the decode step finds every layer's
+    weights cold."""
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8, dense_wint8_plain
+    shapes = [(name, m, k, n) for m in K4_ROWS for name, (k, n) in K4_PRODUCTS.items()]
+    shapes.append(("ragged",) + K4_RAGGED)
+    rows = {}
+    for name, m, k, n in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, q, s, b = k4_inputs(np, torch, dev, m, k, n, dtype, seed=m + k + n)
+            got = dense_wint8(x, q, s, b)
+            want = dense_wint8_plain(x, q, s, b)
+            torch.cuda.synchronize()
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            check(got.dtype == dtype and tuple(got.shape) == (m, n)
+                  and bool(torch.isfinite(got).all()), f"K4 output ({name} M={m} {dt})")
+            excess, over_ulp = k4_excess(torch, x, q, s, got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            check(excess.max().item() <= 0, f"K4 kernel vs plain beyond tolerance ({name} "
+                  f"M={m} K={k} N={n} {dt}; max abs err {err})")
+            check(torch.equal(dense_wint8(x, q, s, b), got), "K4 differs on a second launch")
+            # the yardstick multiplies by weights dequantised beforehand
+            iq, iw = cycled(q), cycled((q.float() * s).to(dtype))
+            ms = cuda_ms(torch, lambda: dense_wint8(x, next(iq), s, b), 200)
+            plain_ms = cuda_ms(torch, lambda: dense_wint8_plain(x, next(iq), s, b), 20)
+            library_ms = cuda_ms(torch, lambda: torch.addmm(b, x, next(iw)), 200)
+            nbytes = (x.numel() * x.element_size() + q.numel() + s.numel() * 4
+                      + b.numel() * b.element_size() + m * n * x.element_size())
+            flops = 2 * m * k * n
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+            row = dict(m=m, k=k, n=n, dtype=dt, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, max_abs_err=err, over_one_ulp=over_ulp,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, flops=flops)
+            rows[f"{name} M={m} {dt}"] = row
+            tol = (f"{over_ulp} elements > 1 bf16 ulp" if dtype == torch.bfloat16
+                   else "within rtol 2e-5 / atol 2e-4")
+            log(f"K4 dense_wint8 {name} M={m} K={k} N={n} {dt}: max_abs_err {err:.3e} "
+                f"({tol}) kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{nbytes} B = {t_bytes * 1e3:.4f} ms, {flops} FLOP = {t_ops * 1e3:.4f} ms); "
+                f"yardstick addmm over dequantised {dt} weights {library_ms:.4f} ms "
+                f"[{result['card']}]")
+            del iq, iw
+        torch.cuda.empty_cache()
+    result["dense_wint8"] = rows
+
+
+def k4_summary(rows):
+    """K4's numbers for the kernels line: the mean launch over one layer's
+    four products at the greedy row budget (M = 64) in bf16, the shapes the
+    "pallas" serving run gives it."""
+    picked = [rows[f"{p} M=64 bf16"] for p in K4_PRODUCTS]
+    out = {key: sum(r[key] for r in picked) / len(picked)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in picked)
+    out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in picked)
+                       else "operations")
+    return out
+
+
 def phase_reference(np, torch, dev):
     """Small model, same weights and uint8 inputs, on the card (kernels) and
     on the CPU (plain versions): identical reports and decisions, greedy
@@ -325,36 +462,19 @@ def phase_reference(np, torch, dev):
     the random decoder's choices are not near-uniform. Inputs are the first
     seeded batch whose decisions all have margins well above the two
     devices' f32 disagreement (tests/torch_parity.py)."""
-    import copy
-    from rgrg_tpu_torch.core import config as TC
-    from rgrg_tpu_torch.inference import ReportGenerator
     from rgrg_tpu_torch.models.full_model import RGRG
-    from rgrg_tpu_torch.ops.resize import device_preprocess
-    from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
     from tests.torch_parity import (beam_score_margin, greedy_logit_margin,
                                     has_parity_margins)
 
-    cfg = TC.ModelConfig(
-        detector=TC.DetectorConfig(backbone_stages=(1, 1, 1, 1),
-                                   rpn=TC.RPNConfig(pre_nms_top_n_test=32)),
-        decoder=TC.DecoderConfig(vocab_size=512, hidden_dim=64, num_heads=4,
-                                 num_layers=2, max_positions=64, bos_token_id=0,
-                                 eos_token_id=0, pad_token_id=0))
-    cpu = torch.device("cpu")
-    p_cpu = RGRG(cfg).init(seed=3, device=cpu)
-    p_cpu["decoder"] = _tree_map(p_cpu["decoder"], lambda t: t * 8.0)
-    p_gpu = {"detector": copy.deepcopy(p_cpu["detector"]).to(dev),
-             "decoder": _tree_map(p_cpu["decoder"], lambda t: t.to(dev))}
-    tok = GPT2Tokenizer.dummy()
-    g_cpu = ReportGenerator(p_cpu, tok, cfg=cfg)
-    g_gpu = ReportGenerator(p_gpu, tok, cfg=cfg)
-    shape = (1024, 768)  # exact 2x downscale: both devices preprocess identically
+    cfg = small_config()
+    g_cpu, g_gpu = small_generators(torch, dev, cfg)
+    p_cpu = g_cpu.params
+    shape = (1024, 768)  # exact 2x downscale: both resize routes agree
     max_length, min_gap = 12, 1e-4
     for seed in range(24):
         images = list(np.random.default_rng(seed).integers(0, 256, (2, *shape),
                                                            dtype=np.uint8))
-        raw, (wy, wx) = g_cpu.preprocess_raw(images)
-        x = device_preprocess(raw, wy, wx)
+        x = g_cpu.preprocess(images)
         if not has_parity_margins(p_cpu["detector"], x):
             continue
         det = RGRG(cfg).detect(p_cpu, x)
@@ -370,16 +490,127 @@ def phase_reference(np, torch, dev):
     for name, kw in (("greedy", {"num_beams": 1}), ("beam-4 default", {})):
         want = g_cpu.generate_reports(images, max_length=max_length, **kw)
         got = g_gpu.generate_reports(images, max_length=max_length, **kw)
-        for g, w in zip(got, want):
-            check(g.report == w.report, f"card report != CPU report ({name})")
-            check(g.region_sentences == w.region_sentences, f"card sentences != CPU ({name})")
-            check(np.array_equal(g.selected_regions, w.selected_regions), "selection differs")
-            check(np.array_equal(g.class_detected, w.class_detected), "detections differ")
-            check(np.allclose(g.top_region_boxes, w.top_region_boxes, rtol=1e-4, atol=1e-2),
-                  "boxes differ")
+        same_reports(np, got, want, f"card vs CPU, {name}")
         n_sel = int(sum(r.selected_regions.sum() for r in got))
         log(f"reference ({name}): input seed {seed}, 2 images, {n_sel} regions decoded: "
             f"card == CPU (reports, sentences, selection, detections; boxes within 1e-2 px)")
+
+
+def same_reports(np, got, want, what):
+    check(len(got) == len(want), f"report count ({what})")
+    for g, w in zip(got, want):
+        check(g.report == w.report, f"reports differ ({what})")
+        check(g.region_sentences == w.region_sentences, f"sentences differ ({what})")
+        check(np.array_equal(g.selected_regions, w.selected_regions),
+              f"selection differs ({what})")
+        check(np.array_equal(g.class_detected, w.class_detected), f"detections differ ({what})")
+        check(np.allclose(g.top_region_boxes, w.top_region_boxes, rtol=1e-4, atol=1e-2),
+              f"boxes differ ({what})")
+
+
+def small_config(**generation):
+    """Shallow backbone, 32 proposals, a 2-layer 64-wide decoder."""
+    from rgrg_tpu_torch.core import config as TC
+    return TC.ModelConfig(
+        detector=TC.DetectorConfig(backbone_stages=(1, 1, 1, 1),
+                                   rpn=TC.RPNConfig(pre_nms_top_n_test=32)),
+        decoder=TC.DecoderConfig(vocab_size=512, hidden_dim=64, num_heads=4,
+                                 num_layers=2, max_positions=64, bos_token_id=0,
+                                 eos_token_id=0, pad_token_id=0),
+        generation=TC.GenerationConfig(**generation))
+
+
+def small_generators(torch, dev, cfg, snap=False):
+    """(CPU generator, card generator) over the same seeded weights; the
+    decoder weights scaled x8 so a random decoder's choices are not
+    near-uniform, and with snap=True projected onto their own int8 grid
+    (q * s), which weights_int8 then quantizes without loss."""
+    import copy
+    from rgrg_tpu_torch.inference import ReportGenerator
+    from rgrg_tpu_torch.models import gpt2
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
+    cpu = torch.device("cpu")
+    p_cpu = RGRG(cfg).init(seed=3, device=cpu)
+    p_cpu["decoder"] = _tree_map(p_cpu["decoder"], lambda t: t * 8.0)
+    if snap:
+        q = gpt2.quantize_decoder_weights(p_cpu["decoder"], layout="xla")
+        for name, block in q.items():
+            if name.startswith("h_"):
+                for grp, kn in (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
+                                ("mlp", "c_proj")):
+                    qd = block[grp][kn]
+                    p_cpu["decoder"][name][grp][kn]["kernel"] = qd["kernel"].float() * qd["scale"]
+    p_gpu = {"detector": copy.deepcopy(p_cpu["detector"]).to(dev),
+             "decoder": _tree_map(p_cpu["decoder"], lambda t: t.to(dev))}
+    tok = GPT2Tokenizer.dummy()
+    return ReportGenerator(p_cpu, tok, cfg=cfg), ReportGenerator(p_gpu, tok, cfg=cfg)
+
+
+def phase_reference_serving(np, torch, dev):
+    """generate_reports_pipelined on the small model, card vs CPU, with
+    weights_int8 off, "xla" and "pallas" over decoder weights on their int8
+    grid: 4 batches of 2 at the serving defaults (greedy, int8 KV cache,
+    speculation), max_length 12 over length buckets (4, 12) so the cascade
+    continues past its first rung. Batches 1-3 hold 1024x768 images (the
+    device-resize route), batch 4 a 1024x768 and a 768x1024 image (mixed:
+    the host route). Each image is the first seeded one whose detector and
+    greedy decisions (int8 cache) clear 1e-3, well above the devices' f32
+    disagreement and the int8 cache's rounding."""
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
+    from rgrg_tpu_torch.serving import CascadeStats, generate_reports_pipelined
+    from tests.torch_parity import greedy_logit_margin, has_parity_margins
+
+    max_length, buckets, min_gap = 12, (4, 12), 1e-3
+    cfg = small_config(length_buckets=buckets)
+    g_cpu, g_gpu = small_generators(torch, dev, cfg, snap=True)
+    p_cpu = g_cpu.params
+
+    def margined(shape, count):
+        found = []
+        for seed in range(64):
+            image = np.random.default_rng([shape[0], seed]).integers(0, 256, shape,
+                                                                     dtype=np.uint8)
+            x = g_cpu.preprocess([image])
+            if not has_parity_margins(p_cpu["detector"], x):
+                continue
+            det = RGRG(cfg).detect(p_cpu, x)
+            feats = det["region_features"][det["selected_regions"]]
+            if feats.shape[0] and greedy_logit_margin(
+                    p_cpu["decoder"], feats, cfg.decoder, max_length,
+                    cache_dtype=torch.int8) >= min_gap:
+                found.append(image)
+                if len(found) == count:
+                    return found
+        raise RuntimeError(f"no seeded {shape} reference inputs with decision margins")
+
+    same = margined((1024, 768), 6)
+    images = same + [same[0]] + margined((768, 1024), 1)
+    check(g_cpu.preprocess_raw(images[-2:])[0] is None, "the mixed batch takes the host route")
+    runs = {}
+    for w in (False, True, "pallas"):
+        for where, gen in (("cpu", g_cpu), ("card", g_gpu)):
+            stats = CascadeStats()
+            before = dense_wint8.launches
+            runs[w, where] = ([r for c in generate_reports_pipelined(
+                gen, images, batch_size=2, max_length=max_length, weights_int8=w,
+                cascade_stats=stats) for r in c], stats.snapshot())
+            launched = dense_wint8.launches - before
+            check(launched > 0 if (w, where) == ("pallas", "card") else launched == 0,
+                  f"K4 launches {launched} (weights_int8={w!r}, {where})")
+        same_reports(np, runs[w, "card"][0], runs[w, "cpu"][0],
+                     f"pipelined card vs CPU, weights_int8={w!r}")
+        check(runs[w, "card"][1] == runs[w, "cpu"][1], f"CascadeStats differ (weights_int8={w!r})")
+        same_reports(np, runs[w, "card"][0], runs[False, "cpu"][0],
+                     f"pipelined weights_int8={w!r} vs off")
+    reports, snap = runs["pallas", "card"]
+    check(snap["rows_entering_rung"].get(buckets[1], 0) > 0,
+          "the cascade did not continue past its first rung")
+    n_sel = int(sum(r.selected_regions.sum() for r in reports))
+    log(f"reference serving: 8 images in 4 batches of 2 (the last mixed-shape), {n_sel} "
+        f"regions; card == CPU and identical across weights_int8 off / xla / pallas "
+        f"(reports, sentences, selection, detections; boxes within 1e-2 px); cascade {snap}")
 
 
 def _tree_map(tree, fn):
@@ -489,8 +720,7 @@ def phase_main(np, torch, dev, result, cfg, raw_shape=RAW_SHAPE):
     # int8 KV cache: re-decode the last request's selected regions, greedy
     # and beam 4 (the beam decode runs K3's int8 variant)
     model = gen.model
-    raw, mats = gen.preprocess_raw(requests[-1])
-    det = model.detect(params, raw, mats)
+    det = model.detect(params, gen.preprocess(requests[-1]))
     check(all(v.device.type == dev.type for v in det.values()), "detector output off the card")
     sel = det["selected_regions"]
 
@@ -528,39 +758,50 @@ def phase_main(np, torch, dev, result, cfg, raw_shape=RAW_SHAPE):
         name: breakdown(torch, gen, params, requests[-1], decodes[name]["bf16_decode_ms"],
                         paths[name]["steady_ms"], name, **kw)
         for name, kw in (("greedy", {"num_beams": 1}), ("beam4", {}))}
-    return paths["beam4"]["launches"]
+    return paths["beam4"]["launches"], gen
+
+
+def timed(torch, fn, reps=3):
+    """(fn()'s last result, its mean ms over `reps` synchronized calls)."""
+    out, ts = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return out, sum(ts) / len(ts)
 
 
 def breakdown(torch, gen, params, images, decode_ms, steady_ms, name, **kw):
-    """Where a request's time goes: the host-side upload, the detector and
-    the decode cascade timed apart (host clock around synchronized work),
-    then one whole request (generate_reports with `kw`) under
-    torch.profiler for device busy time by kernel. Runs after the launch
-    counters were read."""
-    model = gen.model
+    """Where a request's time goes: the host preprocessing with its upload,
+    the detector and the decode cascade timed apart (host clock around
+    synchronized work), then one whole request (generate_reports with `kw`)
+    under torch.profiler for device busy time by kernel. Runs after the
+    launch counters were read."""
+    x, preprocess_ms = timed(torch, lambda: gen.preprocess(images))
+    _, detect_ms = timed(torch, lambda: gen.model.detect(params, x))
+    log(f"breakdown {name}: host preprocess + upload {preprocess_ms:.1f} ms, detect "
+        f"{detect_ms:.1f} ms, decode cascade {decode_ms:.1f} ms (bf16 cache)")
+    out = {"preprocess_ms": preprocess_ms, "detect_ms": detect_ms, "decode_ms": decode_ms}
+    out["profile"] = profiled(
+        torch, lambda: gen.generate_reports(images, max_length=MAX_LENGTH, **kw),
+        steady_ms, f"breakdown {name}", "request")
+    return out
 
-    def timed(fn, reps=3):
-        out, ts = None, []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        return out, sum(ts) / len(ts)
 
-    (raw, mats), upload_ms = timed(lambda: gen.preprocess_raw(images))
-    _, detect_ms = timed(lambda: model.detect(params, raw, mats))
-    log(f"breakdown {name}: upload {upload_ms:.1f} ms, detect {detect_ms:.1f} ms, "
-        f"decode cascade {decode_ms:.1f} ms (bf16 cache)")
-    out = {"upload_ms": upload_ms, "detect_ms": detect_ms, "decode_ms": decode_ms}
-
+def profiled(torch, fn, steady_ms, what, unit):
+    """Run fn() once under torch.profiler: device busy time, the idle share
+    against the unprofiled `steady_ms` of one `unit` (and against the
+    profiled wall time), the top device kernels, and the hand-written
+    kernels' device time per launch. None when the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        gen.generate_reports(images, max_length=MAX_LENGTH, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
 
@@ -575,33 +816,135 @@ def breakdown(torch, gen, params, images, decode_ms, steady_ms, name, **kw):
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms <= 0:
-        log(f"breakdown {name}: profiler saw no device time (device busy share not "
-            "measured)")
-        out["profile"] = None
-        return out
+        log(f"{what}: profiler saw no device time (device busy share not measured)")
+        return None
     top = [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "calls": e.count}
            for e in events[:12] if dev_us(e) > 0]
     launches = sum(e.count for e in events)
-    log(f"breakdown {name}: device busy {busy_ms:.1f} ms in one request ({launches} device "
-        f"ops); idle share {1 - busy_ms / steady_ms:.1%} of the unprofiled "
-        f"{steady_ms:.1f} ms request ({1 - busy_ms / wall_ms:.1%} of the profiled "
-        f"{wall_ms:.1f} ms)")
+    log(f"{what}: device busy {busy_ms:.1f} ms in one {unit} ({launches} device ops); "
+        f"idle share {1 - busy_ms / steady_ms:.1%} of the unprofiled {steady_ms:.1f} ms "
+        f"{unit} ({1 - busy_ms / wall_ms:.1%} of the profiled {wall_ms:.1f} ms)")
     for row in top:
         log(f"  {row['device_ms']:9.2f} ms {row['calls']:7d}x  {row['name']}")
-    out["profile"] = {"profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
-                      "idle_share": 1 - busy_ms / steady_ms,
-                      "idle_share_profiled": 1 - busy_ms / wall_ms,
-                      "device_ops": launches, "top": top}
+    out = {"profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / steady_ms,
+           "idle_share_profiled": 1 - busy_ms / wall_ms,
+           "device_ops": launches, "top": top}
     # the kernels' own device time on this path, at the shapes it gives them
-    for kernel in ("nms_keep_mask_kernel", "roi_align_kernel", "beam_attn_kernel"):
+    for kernel in ("nms_keep_mask_kernel", "roi_align_kernel", "beam_attn_kernel",
+                   "dense_wint8_kernel"):
         hits = [e for e in events if kernel in e.key]
         calls = sum(e.count for e in hits)
         if calls:
             ms = sum(dev_us(e) for e in hits) / 1e3
-            log(f"breakdown {name}: {kernel} {ms:.2f} ms of device time in {calls} "
+            log(f"{what}: {kernel} {ms:.2f} ms of device time in {calls} "
                 f"launches ({ms / calls * 1e3:.1f} us each)")
-            out["profile"][kernel] = {"device_ms": ms, "calls": calls}
+            out[kernel] = {"device_ms": ms, "calls": calls}
     return out
+
+
+def phase_serving(np, torch, dev, result, gen, cfg):
+    """The serving path: generate_reports_pipelined over SERVE_BATCHES
+    batches of BATCH uint8 X-rays of one shape (the device-resize route) at
+    the serving defaults (greedy, int8 KV cache, speculation; max_length
+    MAX_LENGTH fits the first length bucket, so one rung), with bf16 decoder
+    weights and with weights_int8="pallas" (K4). Returns the K4 launch
+    count of the "pallas" run."""
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.decode.greedy import greedy_generate
+    from rgrg_tpu_torch.models import gpt2
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.serving import CascadeStats, generate_reports_pipelined
+
+    rng = np.random.default_rng(11)
+    images = list(rng.integers(0, 256, (SERVE_BATCHES * BATCH, *RAW_SHAPE), dtype=np.uint8))
+    per_step = 4 * cfg.decoder.num_layers  # K4 launches per decode step and per prefill
+    chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
+    runs = {}
+    for name, w in (("bf16", False), ("pallas", "pallas")):
+        # a warm-up batch; the yields of a pipelined run lag its dispatch by
+        # a batch, so the timed run is measured from its start to its last
+        # report
+        _, warm_ms = timed(torch, lambda: [r for c in generate_reports_pipelined(
+            gen, images[:BATCH], batch_size=BATCH, max_length=MAX_LENGTH, weights_int8=w)
+            for r in c], reps=1)
+        stats = CascadeStats()
+        nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+        dense_wint8.launches = beam_generate.steps = 0
+        greedy_generate.steps = greedy_generate.prefills = 0
+        t0 = time.perf_counter()
+        marks, n_regions = [], []
+        for reports in generate_reports_pipelined(gen, images, batch_size=BATCH,
+                                                  max_length=MAX_LENGTH, weights_int8=w,
+                                                  cascade_stats=stats):
+            marks.append(time.perf_counter())
+            check(len(reports) == BATCH, f"serving {name}: wrong number of reports")
+            for r in reports:
+                check(isinstance(r.report, str) and r.top_region_boxes.shape == (29, 4)
+                      and np.isfinite(r.top_region_boxes).all()
+                      and len(r.region_sentences) == int(r.selected_regions.sum()),
+                      f"serving {name}: malformed report")
+            n_regions.append(int(sum(r.selected_regions.sum() for r in reports)))
+            # the main thread launches every kernel, and it waits here
+            units = greedy_generate.steps + greedy_generate.prefills
+            want = per_step * units if w else 0
+            check(dense_wint8.launches == want, f"serving {name}: K4 launches "
+                  f"{dense_wint8.launches} != {want} after batch {len(marks)} ({units} "
+                  f"decode steps + prefills)")
+        counts = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+                  "beam_attention": beam_attention.launches,
+                  "dense_wint8": dense_wint8.launches,
+                  "decode_steps": greedy_generate.steps,
+                  "prefills": greedy_generate.prefills}
+        check(len(marks) == SERVE_BATCHES, f"serving {name}: {len(marks)} batches")
+        check(counts["nms"] == SERVE_BATCHES and counts["roi_align"] == SERVE_BATCHES * chunks
+              and counts["beam_attention"] == 0 and counts["decode_steps"] > 0,
+              f"serving {name}: launches {counts}")
+        steady = (marks[-1] - t0) * 1e3 / SERVE_BATCHES
+        rate = SERVE_BATCHES * BATCH / (marks[-1] - t0)
+        # one batch's decode alone: the last batch's selection, same weights
+        params = dict(gen.params)
+        if w:
+            params["decoder"] = gpt2.quantize_decoder_weights(params["decoder"], layout=w)
+        x = gen.preprocess(images[-BATCH:])
+        det = gen.model.detect(params, x)
+        sel = det["selected_regions"]
+        _, decode_ms = timed(torch, lambda: gen.model.decode_selected_cascade(
+            params, det["region_features"], sel, MAX_LENGTH, kv_cache_dtype=torch.int8,
+            first_count=int(sel.sum())))
+        log(f"serving {name}: warm-up batch {warm_ms:.1f} ms; then {SERVE_BATCHES} batches, "
+            f"yields at {[round((m - t0) * 1e3, 1) for m in marks]} ms: {steady:.1f} ms per "
+            f"batch of {BATCH} = {rate:.2f} reports/s; regions {n_regions}; decode of one "
+            f"batch {decode_ms:.1f} ms (int8 KV); launches {counts}; cascade "
+            f"{stats.snapshot()} [{result['card']}]")
+        prof = profiled(torch, lambda: [r for c in generate_reports_pipelined(
+            gen, images[:BATCH], batch_size=BATCH, max_length=MAX_LENGTH, weights_int8=w)
+            for r in c], steady, f"serving {name}", "batch")
+        runs[name] = dict(warmup_ms=warm_ms, batch_yield_ms=[(m - t0) * 1e3 for m in marks],
+                          steady_ms=steady,
+                          reports_per_s=rate, regions=n_regions, decode_ms=decode_ms,
+                          launches=counts, cascade=stats.snapshot(), profile=prof)
+        del params, det, x
+
+    # a mixed-shape batch: the host preprocessing route
+    mixed = [np.ascontiguousarray(im if i % 2 == 0 else im.T)
+             for i, im in enumerate(images[:BATCH])]
+    check(gen.preprocess_raw(mixed)[0] is None, "mixed shapes took the device route")
+    _, host_ms = timed(torch, lambda: gen.preprocess(mixed))
+    reports, mixed_ms = timed(torch, lambda: [r for c in generate_reports_pipelined(
+        gen, mixed, batch_size=BATCH, max_length=MAX_LENGTH) for r in c], reps=1)
+    check(len(reports) == BATCH and all(isinstance(r.report, str) for r in reports),
+          "mixed-shape batch reports")
+    log(f"serving mixed shapes {RAW_SHAPE} / {RAW_SHAPE[::-1]}: host preprocess + upload "
+        f"{host_ms:.1f} ms per batch of {BATCH} = {host_ms / BATCH:.1f} ms per image "
+        f"({os.cpu_count()} host cores); one pipelined batch {mixed_ms:.1f} ms "
+        f"[{result['card']}]")
+    runs["mixed"] = dict(host_preprocess_ms_per_image=host_ms / BATCH, batch_ms=mixed_ms)
+    result["serving"] = runs
+    return runs["pallas"]["launches"]["dense_wint8"]
 
 
 def main() -> int:
@@ -642,8 +985,13 @@ def main() -> int:
     phase_nms(np, torch, dev, result)
     phase_roi(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result)
+    phase_dense_wint8(np, torch, dev, result)
     phase_reference(np, torch, dev)
-    launches = phase_main(np, torch, dev, result, full_width_config())
+    phase_reference_serving(np, torch, dev)
+    cfg = full_width_config()
+    launches, gen = phase_main(np, torch, dev, result, cfg)
+    k4_launches = phase_serving(np, torch, dev, result, gen, cfg)
+    k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2, k3 = result["nms"], result["roi_align"]["bf16"], result["beam_attention"]["bf16"]
     kernels_line = {"kernels": [
@@ -665,6 +1013,14 @@ def main() -> int:
          "launches": launches["beam_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "dense_wint8", "route": "cuda",
+         "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
+         "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",
+         "launches": k4_launches, "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "shape": "mean of one layer's 4 products, M=64, bf16 x; library_ms: "
+                  "torch.addmm over dequantised bf16 weights (weights_int8=False)"},
     ]}
     result["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,0 +1,59 @@
+"""Load a reference RGRG `.pt` checkpoint.
+
+`load_torch_checkpoint` reads the file on the CPU and returns its model
+state dict: the reference saves {"model": state_dict, "optimizer": ...,
+...} (other entries are ignored), and a bare state dict loads as it is.
+`convert_full_checkpoint` turns it into the JAX package's parameter layout
+(numpy), which `core/convert.from_jax_params` carries into the port. It
+takes a uniform nn.DataParallel "module." prefix and either torchvision
+name of the RPN conv.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from rgrg_tpu_torch.core import torch_convert as tc
+
+
+def normalize_rpn_conv_keys(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Newer torchvision saves 'rpn.head.conv.0.0.*', older 'rpn.head.conv.*':
+    rename the new to the old where only the new is present."""
+    out = dict(sd)
+    for suffix in ("weight", "bias"):
+        new, old = f"rpn.head.conv.0.0.{suffix}", f"rpn.head.conv.{suffix}"
+        for prefix in ("", "object_detector."):
+            if prefix + new in out and prefix + old not in out:
+                out[prefix + old] = out.pop(prefix + new)
+    return out
+
+
+def convert_full_checkpoint(state_dict: Mapping[str, Any],
+                            num_layers: int = 24) -> Dict[str, Any]:
+    """A reference ReportGenerationModel state dict (object_detector.*,
+    binary_classifier_region_selection.*, binary_classifier_region_abnormal.*,
+    language_model.*) -> {"detector": {"params", "batch_stats"},
+    "decoder": ...} as numpy arrays."""
+    sd = tc.state_dict_to_numpy(state_dict)
+    if sd and all(k.startswith("module.") for k in sd):
+        sd = tc.strip_prefix(sd, "module.")
+    sd = normalize_rpn_conv_keys(sd)
+    out: Dict[str, Any] = {"detector": tc.convert_detector(
+        tc.strip_prefix(sd, "object_detector."),
+        selection_sd=tc.strip_prefix(sd, "binary_classifier_region_selection."),
+        abnormal_sd=tc.strip_prefix(sd, "binary_classifier_region_abnormal."))}
+    lm_sd = tc.strip_prefix(sd, "language_model.")
+    if lm_sd:
+        out["decoder"] = tc.convert_language_model(lm_sd, num_layers=num_layers)
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """The model state dict of a reference `.pt`, loaded on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
+        return ckpt["model"]
+    return ckpt

@@ -27,7 +27,11 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
     active: optional [B] bool of rows that need decoding; the others (the
     padding rows of a compacted selection) are born finished.
     cache_dtype: None follows the parameter dtype; torch.int8 selects the
-    quantized cache."""
+    quantized cache.
+
+    Each call adds one to `greedy_generate.prefills` and each decode step
+    one to `greedy_generate.steps`."""
+    greedy_generate.prefills += 1
     b = image_features.shape[0]
     logits0, cache = gpt2.prefill(params, image_features, cfg.bos_token_id,
                                   max_length, cfg, cache_dtype=cache_dtype)
@@ -52,4 +56,9 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
         out[:, t + 2] = token
         unfinished = unfinished & (token != cfg.eos_token_id)
         t += 1
+        greedy_generate.steps += 1
     return out
+
+
+greedy_generate.prefills = 0
+greedy_generate.steps = 0

@@ -1,18 +1,21 @@
-"""Product inference API: uint8 X-rays in, radiology reports out.
+"""Product inference API: X-rays in, radiology reports out.
 
-Images of one shape per batch are uploaded as raw uint8 and resized,
-padded and normalized on the device (ops/resize.py), the batch runs
-through the detector and one batched decode of all selected regions (beam
-4 with early stopping by default, as in the JAX package and the reference;
+As in the JAX package, `generate_reports` and the interactive APIs
+preprocess on the host (data/preprocess.py, a copy of the JAX package's
+C++ pipeline: resize, uint8-domain rounding, pad, normalise) and upload the
+normalised batch; the batch runs through the detector and one batched
+decode of all selected regions (beam 4 with early stopping by default;
 num_beams=1 is greedy), and the host assembles one report per image with
 exact sentence dedup (soft dedup takes a caller-supplied `similarity_fn`).
-The interactive APIs decode named regions (generate_for_regions) or
-user-drawn boxes (generate_for_boxes) of one image.
+`preprocess_raw` is the device-resize route the pipelined server
+(serving.py) takes for a batch of one uint8 shape: raw uint8 goes up and
+ops/resize.py resizes on the device. The interactive APIs decode named
+regions (generate_for_regions) or user-drawn boxes (generate_for_boxes) of
+one image.
 
 Usage:
-    params = RGRG(cfg).init(seed=0)              # or core.convert.from_jax_params
-    gen = ReportGenerator(params, GPT2Tokenizer.from_dir(vocab_dir), cfg=cfg)
-    reports = gen.generate_reports([xray_u8_a, xray_u8_b])
+    gen = ReportGenerator.from_torch_checkpoint("ckpt.pt", tokenizer_dir)
+    reports = gen.generate_reports(["a.png", xray_u8_b])
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from rgrg_tpu_torch.core import constants as C
 from rgrg_tpu_torch.core.config import ModelConfig
+from rgrg_tpu_torch.core.device import DeviceLike
+from rgrg_tpu_torch.data.preprocess import preprocess_batch
 from rgrg_tpu_torch.models.full_model import RGRG, Params
 from rgrg_tpu_torch.ops.resize import resize_matrices
 from rgrg_tpu_torch.text.report import SimilarityFn, assemble_report
@@ -66,6 +71,34 @@ class ReportGenerator:
         self.device = next(params["detector"].parameters()).device
         self._resize_cache: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
+    @classmethod
+    def from_torch_checkpoint(cls, checkpoint_path: str, tokenizer_dir: str,
+                              cfg: ModelConfig = ModelConfig(),
+                              device: DeviceLike = None, **kw) -> "ReportGenerator":
+        """A reference `.pt` (core/checkpoint.py) and a GPT-2 tokenizer
+        directory -> a generator with its parameters on `device` (default
+        cuda)."""
+        from rgrg_tpu_torch.core.checkpoint import (convert_full_checkpoint,
+                                                    load_torch_checkpoint)
+        from rgrg_tpu_torch.core.convert import from_jax_params
+        tree = convert_full_checkpoint(load_torch_checkpoint(checkpoint_path),
+                                       num_layers=cfg.decoder.num_layers)
+        return cls(from_jax_params(tree, cfg, device),
+                   GPT2Tokenizer.from_dir(tokenizer_dir), cfg=cfg, **kw)
+
+    def preprocess(self, images: Sequence[ImageLike],
+                   transfer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Paths or grayscale arrays (any shapes) -> the normalised batch
+        [B, 512, 512, 1] on the generator's device, preprocessed on the
+        host. transfer_dtype (e.g. torch.bfloat16): cast on the host before
+        the upload, which halves its bytes when the detector computes in
+        bf16 anyway."""
+        arrays = [load_image(im) if isinstance(im, str) else im for im in images]
+        batch = torch.from_numpy(preprocess_batch(arrays))
+        if transfer_dtype is not None:
+            batch = batch.to(transfer_dtype)
+        return batch.to(self.device)
+
     def _resize_mats(self, shape: Tuple[int, int]):
         """Per-input-shape (wy, wx) resize matrices, built once on the host
         and kept on the device."""
@@ -77,18 +110,17 @@ class ReportGenerator:
         return self._resize_cache[shape]
 
     def preprocess_raw(self, images: Sequence[ImageLike]):
-        """Paths or 2-D uint8 arrays of ONE shape -> (raw [B, H, W] uint8 on
-        the device, (wy, wx)). Raises on mixed shapes or dtypes."""
+        """Device-resize route: paths or arrays -> ((raw [B, H, W] uint8 on
+        the device, (wy, wx)), None) when every image is 2-D uint8 of one
+        shape; (None, the loaded arrays) otherwise, so that the caller can
+        preprocess them on the host without reading the files again."""
         arrays = [load_image(im) if isinstance(im, str) else np.asarray(im)
                   for im in images]
         shape = arrays[0].shape
-        for a in arrays:
-            if a.ndim != 2 or a.dtype != np.uint8 or a.shape != shape:
-                raise ValueError(
-                    "generate_reports takes 2-D uint8 images of one shape per "
-                    f"batch; got {a.dtype} {a.shape} beside uint8 {shape}")
+        if any(a.ndim != 2 or a.dtype != np.uint8 or a.shape != shape for a in arrays):
+            return None, arrays
         raw = torch.from_numpy(np.stack(arrays)).to(self.device)
-        return raw, self._resize_mats(shape)
+        return (raw, self._resize_mats(shape)), None
 
     def _decode_args(self, num_beams: Optional[int], max_length: Optional[int]):
         gen = self.model.cfg.generation
@@ -99,14 +131,13 @@ class ReportGenerator:
                          num_beams: Optional[int] = None,
                          max_length: Optional[int] = None,
                          early_stopping: bool = True) -> List[GeneratedReport]:
-        """Reports for a batch of same-shape uint8 X-rays (or paths).
-        num_beams/max_length default to the config's generation settings
-        (beam 4, 300 tokens)."""
+        """Reports for a batch of grayscale X-rays (arrays of any shapes, or
+        paths). num_beams/max_length default to the config's generation
+        settings (beam 4, 300 tokens)."""
         num_beams, max_length = self._decode_args(num_beams, max_length)
-        raw, mats = self.preprocess_raw(images)
-        out = self.model.generate(self.params, raw, max_length=max_length,
-                                  num_beams=num_beams,
-                                  early_stopping=early_stopping, resize_mats=mats)
+        out = self.model.generate(self.params, self.preprocess(images),
+                                  max_length=max_length, num_beams=num_beams,
+                                  early_stopping=early_stopping)
         ids = out["output_ids"].cpu().numpy()
 
         results = []
@@ -136,8 +167,7 @@ class ReportGenerator:
         """Anatomy-based generation: sentences for the named regions of one
         image, those the detector found."""
         num_beams, max_length = self._decode_args(num_beams, max_length)
-        raw, mats = self.preprocess_raw([image])
-        det = self.model.detect(self.params, raw, mats)
+        det = self.model.detect(self.params, self.preprocess([image]))
         mask = torch.zeros((1, C.NUM_REGIONS), dtype=torch.bool, device=self.device)
         for name in region_names:
             mask[0, C.ANATOMICAL_REGIONS[name]] = True
@@ -160,11 +190,23 @@ class ReportGenerator:
         ([N, 4] xyxy in the 512-pixel model frame), RoI-pooled straight from
         the backbone's map, bypassing the RPN."""
         num_beams, max_length = self._decode_args(num_beams, max_length)
-        raw, mats = self.preprocess_raw([image])
         det = self.params["detector"]
-        feats = det.backbone(self.model._prepare_images(raw, mats))
+        feats = det.backbone(self.preprocess([image]))
         bx = torch.as_tensor(np.asarray(boxes, np.float32)[None], device=self.device)
         region = det.region_features_from_boxes(feats, bx)[0]          # [N, 1024]
         ids, _ = self.model.decode_rows(self.params, region, max_length,
                                         num_beams, early_stopping)
         return [self.tokenizer.decode(row) for row in ids.cpu().numpy()]
+
+
+def write_generated_reports_to_txt(image_paths: Sequence[str],
+                                   reports: Sequence[GeneratedReport],
+                                   path: str) -> None:
+    """The reference's report file: per image its path and report, then a
+    rule of 30 '=' (the JAX package writes the same)."""
+    with open(path, "w") as f:
+        for image_path, rep in zip(image_paths, reports):
+            f.write(f"Image path: {image_path}\n")
+            f.write(f"Generated report: {rep.report}\n\n")
+            f.write("=" * 30)
+            f.write("\n\n")

@@ -164,11 +164,14 @@ class RGRG:
                           kv_cache_dtype: Optional[torch.dtype] = None,
                           resize_mats=None, image_chunk: Optional[int] = None,
                           num_beams: int = 1, early_stopping: bool = False,
+                          return_features: bool = False,
                           return_done: bool = False) -> Dict[str, torch.Tensor]:
         """Detector + one budgeted decode. selected_regions=None decodes the
         detector's own selection; rows beyond r_budget stay undecoded, as
         in decode_selected (the caller checks the count). return_done adds
-        "decode_done" (beam search only)."""
+        "decode_done" (beam search only); return_features adds
+        "region_features", from which serving continues the cascade or
+        re-decodes a missed budget."""
         det = self.detect(params, images, resize_mats, image_chunk=image_chunk)
         sel = det["selected_regions"] if selected_regions is None else selected_regions
         res = self.decode_selected(params, det["region_features"], sel,
@@ -187,6 +190,8 @@ class RGRG:
         }
         if return_done:
             out["decode_done"] = res[2]
+        if return_features:
+            out["region_features"] = det["region_features"]
         return out
 
     @torch.inference_mode()
@@ -197,7 +202,8 @@ class RGRG:
                                 kv_cache_dtype: Optional[torch.dtype] = None,
                                 buckets: Optional[Tuple[int, ...]] = None,
                                 first_count: Optional[int] = None,
-                                num_beams: int = 1, early_stopping: bool = False
+                                num_beams: int = 1, early_stopping: bool = False,
+                                stats=None, stats_rung1: bool = True
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Decode (greedy or beam) through the static length-bucket ladder;
         one host read of the remaining-row count per bucket used
@@ -213,6 +219,9 @@ class RGRG:
             to its pool and has no live beams, so finalize reads the same
             pool under any longer cap; every other row re-decodes from
             scratch at the next bucket, which is the longer cap's decode.
+        stats: an optional serving.CascadeStats; it records the rows
+        entering each rung and, unless stats_rung1 is False (the caller ran
+        rung 1 itself and recorded it), the rung-1 closure.
         Returns (output_ids [B, 29, max_length], decoded_mask [B, 29])."""
         b = region_features.shape[0]
         pad = self.cfg.decoder.pad_token_id
@@ -225,10 +234,17 @@ class RGRG:
 
         output_ids, decoded_mask = None, None
         remaining = selected_regions
+        n_first = None
         for j, bucket in enumerate(buckets):
             bucket = min(bucket, max_length)
             n_rem = (first_count if j == 0 and first_count is not None
                      else int(remaining.sum()))
+            if j == 0:
+                n_first = n_rem
+            elif j == 1 and stats is not None and stats_rung1:
+                stats.record_rung1(n_first, n_rem)
+            if stats is not None:
+                stats.record_rung(bucket, n_rem)
             if output_ids is not None and n_rem == 0:
                 break
             res = self.decode_selected(

@@ -18,6 +18,10 @@ place: one slot per layer per step, no reallocation. Beam search moves it
 once, after prefill, to per-layer head-leading buffers [H, B*K, 1+T, D]
 (cache_to_beam_layers) that decode_step_beam updates in place and reads
 through the ancestry table (ops/beam_attn.py, kernel K3 on the card).
+
+quantize_decoder_weights turns each layer's four matmul kernels into
+weight-only per-channel int8; _dense multiplies by them in either layout
+(kernel K4, ops/dense_wint8.py, reads the "pallas" one on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.ops.beam_attn import beam_attention
+from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
 
 Params = Dict[str, Any]
 
@@ -36,8 +41,54 @@ MASK_VALUE = -1e4
 
 
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """y = x @ kernel + bias with the kernel stored [in, out]."""
-    return torch.matmul(x, p["kernel"]) + p["bias"]
+    """y = x @ kernel + bias with the kernel stored [in, out]. Takes both
+    weight-only int8 layouts of quantize_decoder_weights:
+      - "pallas" ({kernel_q, scale [1, N], bias}): kernel K4
+        (ops/dense_wint8.py) reads the int8 weights and scales the f32 sum;
+      - "xla" ({kernel int8, scale [N], bias}): a plain product in x's dtype
+        over the dequantised weights, scaled and biased in f32 and cast
+        back, rounding where the JAX package's XLA path does (in bf16 the
+        product is rounded before the scale)."""
+    if "kernel_q" in p:
+        return dense_wint8(x, p["kernel_q"], p["scale"], p["bias"])
+    k = p["kernel"]
+    if k.dtype == torch.int8:
+        y = torch.matmul(x, k.to(x.dtype))
+        return (y.to(torch.float32) * p["scale"] + p["bias"].to(torch.float32)).to(y.dtype)
+    return torch.matmul(x, k) + p["bias"]
+
+
+def quantize_decoder_weights(params: Params, layout: str = "xla") -> Params:
+    """Weight-only symmetric per-output-channel int8 of each layer's matmul
+    kernels (attn c_attn/c_proj, mlp c_fc/c_proj); embeddings, layer norms,
+    the uk/uv image adapters and the feature transform keep their dtype.
+
+    Per column, in f32: s = max(max|w| / 127, 1e-12) and
+    q = clip(round_half_even(w / s), -127, 127). layout="xla" stores
+    {kernel int8 [in, out], scale [out], bias}; layout="pallas" stores
+    {kernel_q int8 [in, out], scale [1, out], bias}, the layout K4 consumes.
+    Returns a new tree; `params` is not changed."""
+    if layout not in ("xla", "pallas"):
+        raise ValueError(f"unknown layout {layout!r}")
+    out = dict(params)
+    for name, block in params.items():
+        if not name.startswith("h_"):
+            continue
+        bp = dict(block)
+        for grp_name, names in (("attn", ("c_attn", "c_proj")),
+                                ("mlp", ("c_fc", "c_proj"))):
+            grp = dict(bp[grp_name])
+            for kn in names:
+                w = grp[kn]["kernel"].to(torch.float32)
+                s = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-12)
+                q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+                if layout == "pallas":
+                    grp[kn] = {"kernel_q": q, "scale": s[None, :], "bias": grp[kn]["bias"]}
+                else:
+                    grp[kn] = {"kernel": q, "scale": s, "bias": grp[kn]["bias"]}
+            bp[grp_name] = grp
+        out[name] = bp
+    return out
 
 
 def _layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:

@@ -46,6 +46,10 @@ KERNELS = {
         "rgrg_beam_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
     }),
+    "dense_wint8": ("dense_wint8.cu", [], {
+        "rgrg_dense_wint8": [_P, _I, _P, _P, _P, _I, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+    }),
 }
 
 

@@ -1,0 +1,69 @@
+"""Pipelined batch serving over a directory of X-ray images.
+
+    python -m rgrg_tpu_torch.serve --checkpoint full_model.pt \\
+        --tokenizer-dir gpt2/ --image-dir xrays/ --pattern '*.png'
+
+Loads a reference `.pt` checkpoint, serves the images through
+serving.generate_reports_pipelined (preprocessing, device work and report
+assembly overlap) and writes the reports in the reference's text format.
+Runs on the card unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--checkpoint", required=True, help="reference .pt/.pth checkpoint")
+    ap.add_argument("--tokenizer-dir", required=True)
+    ap.add_argument("--image-dir", required=True)
+    ap.add_argument("--pattern", default="*.jpg")
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--num-beams", type=int, default=1)
+    ap.add_argument("--max-length", type=int, default=300)
+    ap.add_argument("--output", default="generated_reports.txt")
+    ap.add_argument("--detect-image-chunk", type=int, default=None,
+                    help="run the detector over sub-batches of this size "
+                         "(bounds its peak memory)")
+    ap.add_argument("--weights-int8", nargs="?", const="xla", default="off",
+                    choices=("off", "xla", "pallas"),
+                    help="serve the decoder's per-layer matmul weights as "
+                         "weight-only per-channel int8: 'xla' (the bare flag) "
+                         "multiplies by the dequantised weights, 'pallas' reads "
+                         "the int8 weights in kernel K4")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if not args.checkpoint.endswith((".pt", ".pth")):
+        raise SystemExit(f"--checkpoint must be a .pt/.pth file, got {args.checkpoint}")
+
+    from rgrg_tpu_torch.inference import ReportGenerator, write_generated_reports_to_txt
+    from rgrg_tpu_torch.serving import generate_reports_pipelined
+
+    gen = ReportGenerator.from_torch_checkpoint(args.checkpoint, args.tokenizer_dir,
+                                                device=args.device)
+    images = sorted(glob.glob(os.path.join(args.image_dir, args.pattern)))
+    print(f"{len(images)} images")
+    t0 = time.perf_counter()
+    reports = []
+    for chunk in generate_reports_pipelined(
+            gen, images, batch_size=args.batch_size, num_beams=args.num_beams,
+            max_length=args.max_length, detect_image_chunk=args.detect_image_chunk,
+            weights_int8=False if args.weights_int8 == "off" else args.weights_int8):
+        reports.extend(chunk)
+        done = len(reports)
+        print(f"{done}/{len(images)}  {done / (time.perf_counter() - t0):.1f} reports/s")
+    write_generated_reports_to_txt(images, reports, args.output)
+    print(f"wrote {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -41,7 +41,6 @@ from rgrg_tpu_torch.inference import ReportGenerator
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.models.full_model import RGRG
 from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
-from rgrg_tpu_torch.ops.resize import device_preprocess
 from rgrg_tpu_torch.ops.topk import stable_topk
 from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
 
@@ -334,8 +333,7 @@ def model_setup():
     for seed in range(24):
         images = list(np.random.default_rng(seed).integers(0, 256, (2, *SHAPE),
                                                            dtype=np.uint8))
-        raw, (wy, wx) = gen.preprocess_raw(images)
-        x = device_preprocess(raw, wy, wx)
+        x = gen.preprocess(images)
         if not has_parity_margins(tp["detector"], x):
             continue
         det = model.detect(tp, x)
@@ -446,9 +444,8 @@ def test_generate_for_regions_and_boxes_identical_to_jax(model_setup):
     got = s["gen"].generate_for_regions(image, names, max_length=8)
     assert got and got == want
 
-    raw, mats_t = s["gen"].preprocess_raw([image])
     tdet = s["tp"]["detector"]
-    tmap = tdet.backbone(RGRG(s["tcfg"])._prepare_images(raw, mats_t))
+    tmap = tdet.backbone(s["gen"].preprocess([image]))
     for seed in range(16):
         rng = np.random.default_rng(seed)
         xy = rng.uniform(0, 400, (3, 2))

@@ -1,5 +1,6 @@
-"""Kernels K1 (csrc/nms.cu), K2 (csrc/roi_align.cu) and K3
-(csrc/beam_attn.cu) against their plain PyTorch versions, on the card.
+"""Kernels K1 (csrc/nms.cu), K2 (csrc/roi_align.cu), K3
+(csrc/beam_attn.cu) and K4 (csrc/dense_wint8.cu) against their plain
+PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and `nvcc`; they skip where
 torch.cuda.is_available() is false. The file imports neither jax nor
@@ -17,6 +18,7 @@ import torch
 
 from rgrg_tpu_torch.models.gpt2 import _quantize_kv
 from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
+from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8, dense_wint8_plain
 from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
 from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
 
@@ -161,3 +163,67 @@ def test_beam_attention_kernel_equals_plain(cuda, kind, heads, dim, t0):
     assert beam_attention.launches == before + 1
     want = beam_attention_plain(q, k, v, anc, slot, scale=dim ** -0.5, t0=t0, **scales)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def wint8_inputs(m, k, n, seed=0, lead=()):
+    """x [*lead, m, k] ~ N(0, 1) (a layer-normed activation), and q, scale
+    [1, n] quantized per column from GPT-2-like weights ~ N(0, 0.02) as
+    quantize_decoder_weights does, a bias ~ N(0, 0.1); all numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, lead + (m, k)).astype(np.float32)
+    w = rng.normal(0, 0.02, (k, n)).astype(np.float32)
+    s = np.maximum(np.abs(w).max(axis=0, keepdims=True) / np.float32(127), np.float32(1e-12))
+    q = np.clip(np.rint(w / s), -127, 127).astype(np.int8)
+    b = rng.normal(0, 0.1, (n,)).astype(np.float32)
+    return x, q, s.astype(np.float32), b
+
+
+def assert_wint8_close(x, q, scale, got, want):
+    """f32: rtol 2e-5 / atol 2e-4 (summation order). bf16: within one bf16
+    ulp of the plain output, plus the bound on how far two f32 summation
+    orders of the same products can drift apart (2 K 2^-24 sum |x q| s),
+    which only matters where the sum nearly cancels."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+        return
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    k = q.shape[0]
+    drift = (x.float().abs().reshape(-1, k) @ q.float().abs()).reshape(w.shape)
+    drift = drift * scale.reshape(-1) * (2 * k * 2.0 ** -24)
+    err = (got.float() - w).abs()
+    assert bool((err <= ulp + drift).all()), float((err - ulp - drift).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(64, 1024, 3072), (64, 1024, 1024), (64, 1024, 4096),
+                                   (64, 4096, 1024), (256, 1024, 3072), (256, 4096, 1024),
+                                   (5, 96, 100), (37, 200, 48)],
+                         ids=["c_attn64", "c_proj64", "c_fc64", "mlp_proj64", "c_attn256",
+                              "mlp_proj256", "ragged", "ragged_k"])
+def test_dense_wint8_kernel_equals_plain(cuda, dtype, m, k, n):
+    x, q, s, b = wint8_inputs(m, k, n, seed=m + k + n)
+    tx = torch.from_numpy(x).to(cuda, dtype)
+    tq, ts = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    tb = torch.from_numpy(b).to(cuda, dtype)
+    for bias in (tb, None):
+        before = dense_wint8.launches
+        got = dense_wint8(tx, tq, ts, bias)
+        torch.cuda.synchronize()
+        assert dense_wint8.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == (m, n)
+        assert_wint8_close(tx, tq, ts, got, dense_wint8_plain(tx, tq, ts, bias))
+        # the split-K fixup leaves its counts zeroed: a second launch agrees
+        assert torch.equal(dense_wint8(tx, tq, ts, bias), got)
+
+
+@pytest.mark.cuda
+def test_dense_wint8_kernel_leading_dims(cuda):
+    x, q, s, b = wint8_inputs(16, 128, 512, seed=1, lead=(4,))
+    tx = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    tq, ts = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    tb = torch.from_numpy(b).to(cuda, torch.bfloat16)
+    got = dense_wint8(tx, tq, ts, tb)
+    assert tuple(got.shape) == (4, 16, 512)
+    assert_wint8_close(tx, tq, ts, got, dense_wint8_plain(tx, tq, ts, tb))

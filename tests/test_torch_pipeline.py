@@ -5,9 +5,11 @@ backbone and 32 proposals: JAX params from `RGRG(cfg).init`, carried
 across by core/convert.py. The port's `ReportGenerator.generate_reports`
 on uint8 X-rays must give the same reports as JAX's preprocess_raw ->
 detect(resize_mats) -> decode_selected_cascade -> assemble_report, report
-for report. The input is chosen as in tests/test_torch_detector.py: the
-first seeded batch on which every discrete decision (detector and greedy
-decoder) has a margin well above the two libraries' f32 disagreement.
+for report (at an exact 2x downscale the host preprocessing of
+generate_reports and the device resize give the same pixels). The input
+is chosen as in tests/test_torch_detector.py: the first seeded batch on
+which every discrete decision (detector and greedy decoder) has a margin
+well above the two libraries' f32 disagreement.
 
 Also here: the isolation rule (no module of the port imports jax, flax or
 the JAX package).
@@ -35,7 +37,6 @@ from rgrg_tpu_torch.core import constants as C
 from rgrg_tpu_torch.core.convert import from_jax_params
 from rgrg_tpu_torch.inference import ReportGenerator
 from rgrg_tpu_torch.models.full_model import RGRG, ladder_budget
-from rgrg_tpu_torch.ops.resize import device_preprocess
 from rgrg_tpu_torch.text.report import assemble_report
 from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
 
@@ -74,8 +75,7 @@ def setup():
     for seed in range(24):
         images = list(np.random.default_rng(seed).integers(0, 256, (2, *SHAPE),
                                                            dtype=np.uint8))
-        raw, (wy, wx) = gen.preprocess_raw(images)
-        x = device_preprocess(raw, wy, wx)
+        x = gen.preprocess(images)
         if not has_parity_margins(tp["detector"], x):
             continue
         det = model.detect(tp, x)
@@ -165,7 +165,7 @@ def test_detect_and_decode_matches_jax(setup):
     (batch, mats), _ = JReportGenerator(jp, JTokenizer.dummy(), cfg=jcfg,
                                         similarity_fn=None).preprocess_raw(setup["images"])
     want = JRGRG(jcfg).detect_and_decode(jp, batch, None, 12, MAX_LEN, resize_mats=mats)
-    raw, tmats = setup["gen"].preprocess_raw(setup["images"])
+    (raw, tmats), _ = setup["gen"].preprocess_raw(setup["images"])
     got = RGRG(tcfg).detect_and_decode(tp, raw, None, 12, MAX_LEN, resize_mats=tmats)
     for k in ("output_ids", "decoded_mask", "selected_regions", "class_detected"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
@@ -205,11 +205,19 @@ def test_tokenizer_and_report_assembly_match_jax(tmp_path):
 
 
 def test_mixed_shapes_rejected(setup):
+    """The device-resize route takes only a batch of one uint8 shape, as in
+    the JAX package: ((raw, mats), None) for it, (None, the loaded arrays)
+    for mixed shapes or a non-uint8 image, which the host route then
+    preprocesses."""
+    gen = setup["gen"]
     a = np.zeros((64, 64), np.uint8)
-    with pytest.raises(ValueError, match="one shape"):
-        setup["gen"].preprocess_raw([a, np.zeros((64, 65), np.uint8)])
-    with pytest.raises(ValueError, match="uint8"):
-        setup["gen"].preprocess_raw([a, a.astype(np.float32)])
+    for batch in ([a, np.zeros((64, 65), np.uint8)], [a, a.astype(np.float32)]):
+        raw, arrays = gen.preprocess_raw(batch)
+        assert raw is None and len(arrays) == 2
+        assert all(x is y for x, y in zip(arrays, batch))
+    (raw, (wy, wx)), arrays = gen.preprocess_raw([a, a + 1])
+    assert arrays is None and raw.dtype == torch.uint8 and tuple(raw.shape) == (2, 64, 64)
+    assert tuple(wy.shape) == (512, 64) and tuple(wx.shape) == (64, 512)
 
 
 def _imports(path):

@@ -68,11 +68,12 @@ def has_parity_margins(det: RegionDetector, images: torch.Tensor) -> bool:
 
 @torch.no_grad()
 def greedy_logit_margin(params: Dict[str, Any], image_features: torch.Tensor,
-                        cfg: DecoderConfig, max_length: int) -> float:
+                        cfg: DecoderConfig, max_length: int,
+                        cache_dtype=None) -> float:
     """Least top-1 vs top-2 logit gap over the greedy path of every row:
     how close any greedy choice came to flipping."""
     logits, cache = gpt2.prefill(params, image_features, cfg.bos_token_id,
-                                 max_length, cfg)
+                                 max_length, cfg, cache_dtype=cache_dtype)
     gaps = []
     for t in range(max_length - 1):
         top2 = logits.topk(2, dim=-1).values
