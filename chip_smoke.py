@@ -20,13 +20,21 @@ Phases (any failed check raises and the script exits non-zero):
      products (K, N) in {(1024, 3072), (1024, 1024), (1024, 4096),
      (4096, 1024)} at M = 64 and 256 rows, and one ragged shape (5, 96,
      100), bf16 and f32 x with bias (f32: rtol 2e-5 / atol 2e-4; bf16: one
-     bf16 ulp of the plain output plus the f32 reordering bound), timed
-     with the weights cycled past the L2 cache beside the bf16
-     `torch.addmm` over dequantised weights (a yardstick only);
+     bf16 ulp of the plain output plus the f32 reordering bound, and
+     bit-identical on a second launch), timed with the weights cycled past
+     the L2 cache beside the bf16 `torch.addmm` over dequantised weights (a
+     yardstick only); per shape the planner's cluster split of K, at the
+     decoder's shapes the time of every cluster size, and at M = 64
+     the wrapper's host us per call beside `torch.addmm`'s;
+  6a. soft dedup: a random distilbert of the default scorer's widths
+     written to build/smoke_distilbert and named by $RGRG_DISTILBERT_DIR;
+     the default scorer's F1 on the card equals the CPU's (1e-5) and drops
+     the shorter near-duplicate; the variable is set for phases 7 and 12;
   7. reference: a small model (shallow backbone, tiny decoder) serves the
      same uint8 images on the card (kernels) and on the CPU (plain
      versions), greedy and at the beam-4 default through generate_reports
-     (host preprocessing); then through generate_reports_pipelined (4
+     (host preprocessing; generators built with their defaults, so soft
+     dedup runs on each one's device); then through generate_reports_pipelined (4
      batches of 2: three of one shape on the device-resize route, one of
      mixed shapes on the host route; speculation on, the length cascade
      continued past its first rung) with weights_int8 off, "xla" and
@@ -55,7 +63,14 @@ Phases (any failed check raises and the script exits non-zero):
      after a warm-up batch (start to last report), one batch's decode
      time, the CascadeStats snapshot and one profiled batch each;
      then one mixed-shape batch (2048x2500 and 2500x2048) through the
-     host preprocessing route.
+     host preprocessing route;
+ 12. soft dedup at full width: a default ReportGenerator over the main
+     path's weights (so with the phase-6a scorer on the card) answers 2
+     greedy requests of 8 alternately with the exact-dedup one (same
+     region sentences; soft dedup only drops sentences), then serves 4
+     batches through generate_reports_pipelined(weights_int8="pallas");
+     ms per request and per batch beside exact dedup's, and the scorer's
+     calls, pairs and host ms.
 
 TF32 is off for the comparison phases. Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -65,6 +80,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -390,12 +406,32 @@ def k4_excess(torch, x, q, scale, got, want):
     return err - ulp - drift, int((err > ulp).sum())
 
 
+def host_us(torch, fn, iters=200) -> float:
+    """Host time of one call of fn (us): the calls' own Python and launch
+    cost, measured while a spin kernel keeps the card busy, so no call
+    waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_dense_wint8(np, torch, dev, result):
     """K4 against its plain version at the decoder's shapes; device time
     with each launch reading another copy of the weights (over 100 MB of
     copies in turn, twice the L2), as the decode step finds every layer's
-    weights cold."""
-    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8, dense_wint8_plain
+    weights cold. Per shape: the planner's launch (cluster split of K)
+    and, at the decoder's shapes, the time of every other split count the
+    kernel takes; at M = 64 bf16 the wrapper's host cost per call beside
+    one `torch.addmm`'s."""
+    from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, _sm_count, dense_wint8,
+                                                dense_wint8_plain, launch, plan)
+    sms = _sm_count(torch.cuda.current_device())
     shapes = [(name, m, k, n) for m in K4_ROWS for name, (k, n) in K4_PRODUCTS.items()]
     shapes.append(("ragged",) + K4_RAGGED)
     rows = {}
@@ -413,11 +449,25 @@ def phase_dense_wint8(np, torch, dev, result):
             check(excess.max().item() <= 0, f"K4 kernel vs plain beyond tolerance ({name} "
                   f"M={m} K={k} N={n} {dt}; max abs err {err})")
             check(torch.equal(dense_wint8(x, q, s, b), got), "K4 differs on a second launch")
+            splits, per_split = plan(m, n, k, dtype, sms)
             # the yardstick multiplies by weights dequantised beforehand
             iq, iw = cycled(q), cycled((q.float() * s).to(dtype))
             ms = cuda_ms(torch, lambda: dense_wint8(x, next(iq), s, b), 200)
             plain_ms = cuda_ms(torch, lambda: dense_wint8_plain(x, next(iq), s, b), 20)
             library_ms = cuda_ms(torch, lambda: torch.addmm(b, x, next(iw)), 200)
+            sweep = {}
+            if name != "ragged":
+                out = torch.empty_like(got)
+                for z in (1, 2, 4, 8):
+                    per = -(-k // z // BLOCK_K[dtype]) * BLOCK_K[dtype]
+                    if z <= MAX_SPLITS and -(-k // per) == z:
+                        sweep[z] = cuda_ms(torch, lambda: launch(x, next(iq), s, b, out, z,
+                                                                 per), 200)
+            host = {}
+            if m == 64 and dtype == torch.bfloat16:
+                w = next(iw)
+                host = {"dense_wint8_us": host_us(torch, lambda: dense_wint8(x, q, s, b)),
+                        "addmm_us": host_us(torch, lambda: torch.addmm(b, x, w))}
             nbytes = (x.numel() * x.element_size() + q.numel() + s.numel() * 4
                       + b.numel() * b.element_size() + m * n * x.element_size())
             flops = 2 * m * k * n
@@ -427,16 +477,25 @@ def phase_dense_wint8(np, torch, dev, result):
                        library_ms=library_ms, max_abs_err=err, over_one_ulp=over_ulp,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, flops=flops)
+                       bytes=nbytes, flops=flops, splits=splits, k_per_split=per_split,
+                       blocks=-(-m // 64) * -(-n // 128) * splits,
+                       ms_by_splits=sweep, **host)
             rows[f"{name} M={m} {dt}"] = row
             tol = (f"{over_ulp} elements > 1 bf16 ulp" if dtype == torch.bfloat16
                    else "within rtol 2e-5 / atol 2e-4")
             log(f"K4 dense_wint8 {name} M={m} K={k} N={n} {dt}: max_abs_err {err:.3e} "
-                f"({tol}) kernel {ms:.4f} ms, plain "
+                f"({tol}) kernel {ms:.4f} ms (plan: {splits} splits of K {per_split}, "
+                f"{row['blocks']} blocks), plain "
                 f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
                 f"{nbytes} B = {t_bytes * 1e3:.4f} ms, {flops} FLOP = {t_ops * 1e3:.4f} ms); "
                 f"yardstick addmm over dequantised {dt} weights {library_ms:.4f} ms "
                 f"[{result['card']}]")
+            if sweep:
+                log(f"  ms by cluster size: "
+                    + ", ".join(f"{z}: {t:.4f}" for z, t in sweep.items()))
+            if host:
+                log(f"  host us per call: dense_wint8 {host['dense_wint8_us']:.2f}, "
+                    f"torch.addmm {host['addmm_us']:.2f} [{result['card']}]")
             del iq, iw
         torch.cuda.empty_cache()
     result["dense_wint8"] = rows
@@ -448,11 +507,98 @@ def k4_summary(rows):
     "pallas" serving run gives it."""
     picked = [rows[f"{p} M=64 bf16"] for p in K4_PRODUCTS]
     out = {key: sum(r[key] for r in picked) / len(picked)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms", "dense_wint8_us",
+                       "addmm_us")}
     out["max_abs_err"] = max(r["max_abs_err"] for r in picked)
     out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in picked)
                        else "operations")
     return out
+
+
+def write_distilbert(np, torch, path, seed=12):
+    """A local distilbert-base-uncased directory of the default scorer's
+    widths (768 wide, 12 heads, 6 layers, FFN 3072, 512 positions; HF
+    DistilBertModel's parameter names) with seeded random weights (N(0,
+    0.02), LayerNorm 1 / 0 as HF initialises them) and a small WordPiece
+    vocabulary: specials, a few report words, letters and digits with their
+    "##" pieces, punctuation."""
+    words = ["the", "lung", "lungs", "are", "is", "clear", "no", "pleural", "effusion",
+             "seen", "heart", "size", "normal", "there", "acute", "process"]
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + list("0123456789")
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + chars
+             + ["##" + c for c in chars] + list(".,;:!?'\"()-/"))
+    rng = np.random.default_rng(seed)
+    hidden, ffn = 768, 3072
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(0, 0.02, shape).astype(np.float32))
+
+    sd = {"embeddings.word_embeddings.weight": rand(len(vocab), hidden),
+          "embeddings.position_embeddings.weight": rand(512, hidden),
+          "embeddings.LayerNorm.weight": torch.ones(hidden),
+          "embeddings.LayerNorm.bias": torch.zeros(hidden)}
+    for i in range(6):
+        p = f"transformer.layer.{i}"
+        for lin, (o, n) in (("attention.q_lin", (hidden, hidden)),
+                            ("attention.k_lin", (hidden, hidden)),
+                            ("attention.v_lin", (hidden, hidden)),
+                            ("attention.out_lin", (hidden, hidden)),
+                            ("ffn.lin1", (ffn, hidden)), ("ffn.lin2", (hidden, ffn))):
+            sd[f"{p}.{lin}.weight"], sd[f"{p}.{lin}.bias"] = rand(o, n), torch.zeros(o)
+        for ln in ("sa_layer_norm", "output_layer_norm"):
+            sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(hidden), torch.zeros(hidden)
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+
+
+@contextlib.contextmanager
+def distilbert_dir(path):
+    """$RGRG_DISTILBERT_DIR names `path` inside the block: generators built
+    with their defaults there assemble with soft dedup."""
+    previous = os.environ.get("RGRG_DISTILBERT_DIR")
+    os.environ["RGRG_DISTILBERT_DIR"] = path
+    try:
+        yield
+    finally:
+        if previous is None:
+            del os.environ["RGRG_DISTILBERT_DIR"]
+        else:
+            os.environ["RGRG_DISTILBERT_DIR"] = previous
+
+
+def phase_soft_dedup(np, torch, dev, result):
+    """The soft-dedup default: with $RGRG_DISTILBERT_DIR naming a random
+    distilbert of the default scorer's widths (write_distilbert),
+    default_scorer on the card and on the CPU give the same BERTScore F1
+    (within 1e-5: f32 both, TF32 off) and the shorter sentence of a
+    near-duplicate pair is dropped. Returns the distilbert's directory."""
+    from rgrg_tpu_torch.eval import bertscore as bs
+    from rgrg_tpu_torch.text.report import assemble_report
+    path = os.path.join(ROOT, "build", "smoke_distilbert")
+    write_distilbert(np, torch, path)
+    with distilbert_dir(path):
+        card_scorer = bs.default_scorer(device=dev)
+        cpu_scorer = bs.default_scorer(device="cpu")
+    check(card_scorer is not None and card_scorer.device.type == dev.type, "card scorer")
+    long, short = "The lungs are clear .", "the lungs are clear."
+    sents = ["No pleural effusion seen.", "Heart size is normal.", "There is no acute process.",
+             "The heart is 12 cm, size normal.", "Lungs: no effusion; clear."]
+    pairs = [(a, b) for i, a in enumerate(sents) for b in sents[i + 1:]] + [(long, short)]
+    got, want = card_scorer(pairs), cpu_scorer(pairs)
+    err = max(abs(a - b) for a, b in zip(got, want))
+    check(err <= 1e-5, f"BERTScore F1 card vs CPU max abs err {err}")
+    check(got[-1] > 0.999, f"near-duplicate F1 {got[-1]}")
+    report = assemble_report([long, sents[0], "The lungs are clear."], card_scorer)
+    check(report == "The lungs are clear . No pleural effusion seen.", f"soft dedup: {report!r}")
+    _, ms = timed(torch, lambda: card_scorer(pairs))
+    log(f"soft dedup: default_scorer on the card == CPU (F1 max abs err {err:.2e} over "
+        f"{len(pairs)} pairs; F1 range {min(got):.3f}-{max(got[:-1]):.3f}, near-duplicate "
+        f"{got[-1]:.6f}); shorter near-duplicate dropped; one scorer call over "
+        f"{len(pairs)} pairs {ms:.1f} ms [{result['card']}]")
+    result["soft_dedup"] = dict(f1_max_abs_err=err, pairs=len(pairs), call_ms=ms)
+    return path
 
 
 def phase_reference(np, torch, dev):
@@ -461,13 +607,22 @@ def phase_reference(np, torch, dev):
     and at the beam-4 default. The decoder weights are scaled up (x8) so
     the random decoder's choices are not near-uniform. Inputs are the first
     seeded batch whose decisions all have margins well above the two
-    devices' f32 disagreement (tests/torch_parity.py)."""
+    devices' f32 disagreement (tests/torch_parity.py). The generators are
+    built with their defaults, so with $RGRG_DISTILBERT_DIR set they
+    assemble with soft dedup on their own devices."""
+    from rgrg_tpu_torch.eval.bertscore import BERTScorer
     from rgrg_tpu_torch.models.full_model import RGRG
     from tests.torch_parity import (beam_score_margin, greedy_logit_margin,
                                     has_parity_margins)
 
     cfg = small_config()
     g_cpu, g_gpu = small_generators(torch, dev, cfg)
+    if os.environ.get("RGRG_DISTILBERT_DIR"):
+        check(isinstance(g_gpu.similarity_fn, BERTScorer)
+              and g_gpu.similarity_fn.device.type == "cuda"
+              and isinstance(g_cpu.similarity_fn, BERTScorer)
+              and g_cpu.similarity_fn.device.type == "cpu",
+              "the default generators did not take the soft-dedup scorer on their devices")
     p_cpu = g_cpu.params
     shape = (1024, 768)  # exact 2x downscale: both resize routes agree
     max_length, min_gap = 12, 1e-4
@@ -493,7 +648,8 @@ def phase_reference(np, torch, dev):
         same_reports(np, got, want, f"card vs CPU, {name}")
         n_sel = int(sum(r.selected_regions.sum() for r in got))
         log(f"reference ({name}): input seed {seed}, 2 images, {n_sel} regions decoded: "
-            f"card == CPU (reports, sentences, selection, detections; boxes within 1e-2 px)")
+            f"card == CPU (reports, sentences, selection, detections; boxes within 1e-2 px; "
+            f"soft dedup {'on' if g_gpu.similarity_fn else 'off'})")
 
 
 def same_reports(np, got, want, what):
@@ -947,6 +1103,126 @@ def phase_serving(np, torch, dev, result, gen, cfg):
     return runs["pallas"]["launches"]["dense_wint8"]
 
 
+class ReportSentences:
+    """A tokenizer that names the i-th region it decodes SENTENCES[i % 10],
+    a list that holds near-duplicate pairs. The random decoder's ids decode
+    to byte soup that rarely splits into sentences, and often to the same
+    text for every region, so the scorer would almost never run; with
+    these, a report holds one sentence per selected region, as a trained
+    decoder's does. Two instances called in the same order name the same
+    regions alike."""
+
+    SENTENCES = ["The lungs are clear.", "The lungs are clear .", "No pleural effusion seen.",
+                 "No pleural effusion is seen.", "Heart size is normal.",
+                 "The heart size is normal.", "There is no acute process.",
+                 "No acute process.", "The heart is 12 cm, size normal.",
+                 "Lungs: no effusion; clear."]
+
+    def __init__(self):
+        self.calls = 0
+
+    def decode(self, ids, skip_special_tokens=True):
+        self.calls += 1
+        return self.SENTENCES[(self.calls - 1) % len(self.SENTENCES)]
+
+
+def phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg):
+    """What the soft-dedup default costs at full width. With
+    $RGRG_DISTILBERT_DIR naming the smoke's 768-wide distilbert, a
+    ReportGenerator built with its defaults over the main path's weights
+    takes the scorer on the card; an exact-dedup one shares the weights.
+    Each names region sentences through its own ReportSentences. They answer greedy
+    requests of 8 raw X-rays alternately (same images; the region
+    sentences must agree, and soft dedup may only drop sentences), then
+    the soft-dedup one serves SERVE_BATCHES batches through
+    generate_reports_pipelined(weights_int8="pallas") after a warm-up
+    batch, and the exact-dedup one the same batches after it, each timed
+    as the serving phase times its runs (there the scorer runs on the post
+    thread, and its copy of the F1s to the host waits for the decode queued
+    before it). The scorer's calls, pairs and host ms are counted."""
+    from rgrg_tpu_torch.eval.bertscore import BERTScorer
+    from rgrg_tpu_torch.inference import ReportGenerator
+    from rgrg_tpu_torch.serving import generate_reports_pipelined
+    from rgrg_tpu_torch.text.report import split_sentences
+
+    exact = ReportGenerator(gen.params, ReportSentences(), cfg=cfg, similarity_fn=None)
+    soft = ReportGenerator(gen.params, ReportSentences(), cfg=cfg)
+    scorer = soft.similarity_fn
+    check(isinstance(scorer, BERTScorer) and scorer.device.type == dev.type,
+          "the default generator did not take the soft-dedup scorer on the card")
+    tally = {"calls": 0, "pairs": 0, "ms": 0.0}
+
+    def counted(pairs):
+        t = time.perf_counter()
+        out = scorer(pairs)
+        tally["calls"] += 1
+        tally["pairs"] += len(pairs)
+        tally["ms"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    soft.similarity_fn = counted
+    images = list(np.random.default_rng(13).integers(0, 256, (BATCH, *RAW_SHAPE),
+                                                     dtype=np.uint8))
+    times = {"exact": [], "soft": []}
+    dropped = 0
+    for _ in range(2):
+        out = {}
+        for name, g in (("exact", exact), ("soft", soft)):
+            out[name], ms = timed(torch, lambda: g.generate_reports(
+                images, max_length=MAX_LENGTH, num_beams=1), reps=1)
+            times[name].append(ms)
+        for e, s in zip(out["exact"], out["soft"]):
+            check(e.region_sentences == s.region_sentences, "soft vs exact dedup: the "
+                  "region sentences differ")
+            kept, full = split_sentences(s.report), split_sentences(e.report)
+            check(set(kept) <= set(full), "soft dedup added a sentence")
+            dropped += len(full) - len(kept)
+    request = dict(tally)
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"soft dedup, full width, greedy requests of {BATCH}: exact dedup "
+        f"{['%.1f' % t for t in times['exact']]} ms, soft dedup "
+        f"{['%.1f' % t for t in times['soft']]} ms (means {mean['exact']:.1f} / "
+        f"{mean['soft']:.1f}); scorer {request['calls']} calls, {request['pairs']} pairs, "
+        f"{request['ms']:.1f} ms host time over 2 requests; {dropped} sentences dropped "
+        f"[{result['card']}]")
+
+    served = list(np.random.default_rng(11).integers(
+        0, 256, (SERVE_BATCHES * BATCH, *RAW_SHAPE), dtype=np.uint8))
+
+    def serve_batches(g):
+        """(warm-up batch ms, ms per batch over SERVE_BATCHES, reports/s)"""
+        _, warm_ms = timed(torch, lambda: [r for c in generate_reports_pipelined(
+            g, served[:BATCH], batch_size=BATCH, max_length=MAX_LENGTH,
+            weights_int8="pallas") for r in c], reps=1)
+        tally.update(calls=0, pairs=0, ms=0.0)
+        t0 = time.perf_counter()
+        n_reports = 0
+        for reports in generate_reports_pipelined(g, served, batch_size=BATCH,
+                                                  max_length=MAX_LENGTH, weights_int8="pallas"):
+            check(len(reports) == BATCH and all(isinstance(r.report, str) for r in reports),
+                  "soft-dedup phase, serving: malformed reports")
+            n_reports += len(reports)
+        wall = time.perf_counter() - t0
+        check(n_reports == SERVE_BATCHES * BATCH, f"soft-dedup phase: {n_reports} reports")
+        return warm_ms, wall * 1e3 / SERVE_BATCHES, n_reports / wall
+
+    serving = {}
+    for name, g in (("soft", soft), ("exact", exact)):
+        warm_ms, steady, rate = serve_batches(g)
+        serving[name] = dict(warmup_ms=warm_ms, steady_ms=steady, reports_per_s=rate,
+                             scorer=dict(tally))
+    log(f"soft dedup, full width, pipelined weights_int8='pallas', {SERVE_BATCHES} batches "
+        f"of {BATCH} after a warm-up batch: soft dedup {serving['soft']['steady_ms']:.1f} ms "
+        f"per batch = {serving['soft']['reports_per_s']:.2f} reports/s (scorer "
+        f"{serving['soft']['scorer']['calls']} calls, {serving['soft']['scorer']['pairs']} "
+        f"pairs, {serving['soft']['scorer']['ms']:.1f} ms host time on the post thread); "
+        f"exact dedup {serving['exact']['steady_ms']:.1f} ms = "
+        f"{serving['exact']['reports_per_s']:.2f} reports/s [{result['card']}]")
+    result["soft_dedup_full_width"] = dict(
+        request_ms=times, request_mean_ms=mean, request_scorer=request,
+        sentences_dropped=dropped, serving=serving)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -986,11 +1262,15 @@ def main() -> int:
     phase_roi(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result)
     phase_dense_wint8(np, torch, dev, result)
-    phase_reference(np, torch, dev)
+    distilbert = phase_soft_dedup(np, torch, dev, result)
+    with distilbert_dir(distilbert):
+        phase_reference(np, torch, dev)
     phase_reference_serving(np, torch, dev)
     cfg = full_width_config()
     launches, gen = phase_main(np, torch, dev, result, cfg)
     k4_launches = phase_serving(np, torch, dev, result, gen, cfg)
+    with distilbert_dir(distilbert):
+        phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2, k3 = result["nms"], result["roi_align"]["bf16"], result["beam_attention"]["bf16"]

@@ -9,7 +9,9 @@ The product path is ported: X-rays -> resize (on the host as the JAX
 package's generate_reports does, data/preprocess.py, or on the device for a
 same-shape serving batch) -> ResNet-50 -> RPN + NMS (kernel K1, csrc/nms.cu)
 -> RoIAlign (kernel K2, csrc/roi_align.cu) + box head -> region selection ->
-GPT-2 decode -> report assembly (inference.ReportGenerator). The decode is
+GPT-2 decode -> report assembly (inference.ReportGenerator; exact dedup,
+and by default BERTScore soft dedup, eval/bertscore.py, when
+$RGRG_DISTILBERT_DIR names local distilbert weights). The decode is
 beam 4 with early stopping by default, as in the JAX package, whose every
 step attends through the ancestry table (kernel K3, csrc/beam_attn.cu);
 num_beams=1 is greedy. serving.generate_reports_pipelined overlaps host

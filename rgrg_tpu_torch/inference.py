@@ -6,7 +6,9 @@ C++ pipeline: resize, uint8-domain rounding, pad, normalise) and upload the
 normalised batch; the batch runs through the detector and one batched
 decode of all selected regions (beam 4 with early stopping by default;
 num_beams=1 is greedy), and the host assembles one report per image with
-exact sentence dedup (soft dedup takes a caller-supplied `similarity_fn`).
+exact sentence dedup and, by default (`similarity_fn="auto"`), the
+BERTScore soft dedup of eval/bertscore.py when $RGRG_DISTILBERT_DIR names a
+local distilbert-base-uncased directory.
 `preprocess_raw` is the device-resize route the pipelined server
 (serving.py) takes for a batch of one uint8 shape: raw uint8 goes up and
 ops/resize.py resizes on the device. The interactive APIs decode named
@@ -61,14 +63,20 @@ def load_image(path: str) -> np.ndarray:
 class ReportGenerator:
     def __init__(self, params: Params, tokenizer: GPT2Tokenizer,
                  cfg: ModelConfig = ModelConfig(),
-                 similarity_fn: Optional[SimilarityFn] = None,
+                 similarity_fn: Union[SimilarityFn, str, None] = "auto",
                  bertscore_threshold: float = 0.9):
         self.model = RGRG(cfg=cfg)
         self.params = params
         self.tokenizer = tokenizer
+        self.device = next(params["detector"].parameters()).device
+        if similarity_fn == "auto":
+            # the reference's default, distilbert BERTScore soft dedup
+            # (generate_reports_for_images.py:60-96), on this generator's
+            # device; exact dedup only when $RGRG_DISTILBERT_DIR is unset
+            from rgrg_tpu_torch.eval.bertscore import default_scorer
+            similarity_fn = default_scorer(device=self.device)
         self.similarity_fn = similarity_fn
         self.threshold = bertscore_threshold
-        self.device = next(params["detector"].parameters()).device
         self._resize_cache: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @classmethod

@@ -10,30 +10,29 @@ This is the `"pallas"` layout of gpt2.quantize_decoder_weights.
 
 `dense_wint8` is the entry the decoder calls: on a CPU tensor it runs the
 plain PyTorch version below, on a CUDA tensor it launches kernel K4
-(csrc/dense_wint8.cu) for every shape, or raises.
+(csrc/dense_wint8.cu) for every shape, or raises. `plan` chooses the
+launch (how many blocks of one thread block cluster split K); it is pure
+Python so that the CPU tests pin its choices.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Optional, Tuple
 
 import torch
 
 from rgrg_tpu_torch.ops import kernels
 
-# the kernel's tiling (csrc/dense_wint8.cu): 64 x 64 output tiles, K steps
-# of 64 (bf16 x) or 32 (f32 x), at most 8 K-splits per tile
-TILE = 64
+# the kernel's tiling (csrc/dense_wint8.cu): 64 x 128 output tiles, K steps
+# of 64 (bf16 x) or 32 (f32 x), at most 8 K-splits (one cluster) per tile
+TILE_M = 64
+TILE_N = 128
 BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
 MAX_SPLITS = 8
 
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_KIND = {torch.float32: 1, torch.bfloat16: 2}
-
-# per device: the zeroed per-tile arrival counts of the split-K fixup (the
-# kernel leaves them zero again when it ends)
-_counts: Dict[torch.device, torch.Tensor] = {}
 
 
 def dense_wint8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -60,9 +59,16 @@ def _check(x, q, scale, bias) -> None:
     if bias is not None and (bias.dtype not in _BIAS_KIND or bias.numel() != n):
         raise ValueError(f"bias must be float32 or bfloat16 with N={n} elements, "
                          f"got {bias.dtype} {tuple(bias.shape)}")
-    tensors = [x, q, scale] + ([bias] if bias is not None else [])
-    if any(t.device != x.device for t in tensors):
+    dev = x.get_device()  # -1 on the CPU
+    if (q.get_device() != dev or scale.get_device() != dev
+            or (bias is not None and bias.get_device() != dev)):
         raise ValueError("all inputs must be on one device")
+
+
+# the current CUDA stream of a device as an int, without building a Stream
+# object (PyTorch's CUDA builds export the raw getter)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,26 +76,51 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(m: int, n: int, k: int, block_k: int, sms: int):
-    """(splits, K per split): the fewest power-of-two K-splits (at most
-    MAX_SPLITS, at most one per K step) that give the launch at least two
-    blocks per SM; K per split is a whole number of K steps and no split
-    is empty."""
-    tiles = -(-m // TILE) * -(-n // TILE)
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, dtype: torch.dtype, sms: int) -> Tuple[int, int]:
+    """(splits, K per split) of one launch over M x N x K with x of `dtype`.
+    Output tiles are 64 x 128; K is split over a power of two of blocks
+    (one cluster), at most MAX_SPLITS (the portable cluster size) and at
+    most one per K step. bf16 x, bound by the weight stream: the fewest
+    splits that give the launch at least one block per two SMs and each
+    block at most 8 K steps (on the H100 a block streams its share of K at
+    a few tens of GB/s, so long shares are slow, while clusters of many
+    blocks per SM do not all fit at once). f32 x, FMA on CUDA cores and
+    bound by operations: the most splits that still fit one wave of two
+    blocks per SM. K per split is a whole number of K steps, and splits
+    shrink until none is empty. PERF.md has the time of every split count
+    at the decoder's shapes."""
+    block_k = BLOCK_K[dtype]
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
     steps = -(-k // block_k)
     splits = 1
-    while splits < MAX_SPLITS and tiles * splits < 2 * sms and 2 * splits <= steps:
-        splits *= 2
+    if dtype == torch.float32:
+        while 2 * splits <= min(MAX_SPLITS, steps) and 2 * splits * tiles <= 2 * sms:
+            splits *= 2
+    else:
+        want = max(-(-sms // (2 * tiles)), -(-steps // 8))
+        while splits < min(MAX_SPLITS, steps) and splits < want:
+            splits *= 2
     per_split = max(-(-steps // splits), 1) * block_k
     return max(-(-k // per_split), 1), per_split
 
 
-def _tile_counts(device: torch.device, tiles: int) -> torch.Tensor:
-    buf = _counts.get(device)
-    if buf is None or buf.numel() < tiles:
-        buf = _counts[device] = torch.zeros(max(tiles, 1024), dtype=torch.int32,
-                                            device=device)
-    return buf
+def launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+           bias: Optional[torch.Tensor], out: torch.Tensor, splits: int,
+           per_split: int) -> torch.Tensor:
+    """One launch of K4 writing out [M, N] from contiguous CUDA x2 [M, K],
+    q, scale and bias, K split `splits` ways of `per_split` each (the
+    kernel checks the plan). Counted in `dense_wint8.launches`."""
+    m, k = x2.shape
+    lib = kernels.library("dense_wint8")
+    code = lib.rgrg_dense_wint8(
+        x2.data_ptr(), _X_KIND[x2.dtype], q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(),
+        m, q.shape[1], k, splits, per_split, _raw_stream(x2.get_device()))
+    kernels.check(lib, code, "dense_wint8")
+    dense_wint8.launches += 1
+    return out
 
 
 def dense_wint8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -97,39 +128,27 @@ def dense_wint8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """y [..., N] in x's dtype (module docstring). CPU tensors: the plain
     version. CUDA tensors: one launch of kernel K4 (counted in
     `dense_wint8.launches`) for any shape; all inputs must be contiguous.
-    K4 keeps per-tile counts on the device between launches, so calls on
-    one device must come from one stream at a time."""
+    Allocates only the output. The decoder calls it 96 times a decode
+    step, so the CUDA route reads each attribute once and reshapes only
+    inputs that are not 2-D."""
     _check(x, q, scale, bias)
-    lead, (k, n) = x.shape[:-1], q.shape
-    x2 = x.reshape(-1, k)
-    if x.device.type == "cpu":
-        return dense_wint8_plain(x2, q, scale, bias).reshape(lead + (n,))
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    tensors = [x2, q, scale] + ([bias] if bias is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
+    k, n = q.shape
+    flat = x.dim() == 2
+    x2 = x if flat else x.reshape(-1, k)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        y = dense_wint8_plain(x2, q, scale, bias)
+        return y if flat else y.reshape(x.shape[:-1] + (n,))
+    if not (x2.is_contiguous() and q.is_contiguous() and scale.is_contiguous()
+            and (bias is None or bias.is_contiguous())):
         raise ValueError("x, q, scale and bias must be contiguous")
     m = x2.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out.reshape(lead + (n,))
-    dev = x.device if x.device.index is not None else torch.device(
-        "cuda", torch.cuda.current_device())
-    splits, per_split = split_k(m, n, k, BLOCK_K[x.dtype], _sm_count(dev.index))
-    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    counts = _tile_counts(dev, -(-m // TILE) * -(-n // TILE))
-    lib = kernels.library("dense_wint8")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.rgrg_dense_wint8(
-        x2.data_ptr(), _X_KIND[x.dtype], q.data_ptr(), scale.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        _BIAS_KIND[bias.dtype] if bias is not None else 0, out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, counts.data_ptr(),
-        m, n, k, splits, per_split, stream)
-    kernels.check(lib, code, "dense_wint8")
-    dense_wint8.launches += 1
-    return out.reshape(lead + (n,))
+    out = x2.new_empty((m, n))
+    if m and n:
+        splits, per_split = plan(m, n, k, x.dtype, _sm_count(x.get_device()))
+        launch(x2, q, scale, bias, out, splits, per_split)
+    return out if flat else out.reshape(x.shape[:-1] + (n,))
 
 
 dense_wint8.launches = 0

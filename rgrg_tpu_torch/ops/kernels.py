@@ -47,7 +47,7 @@ KERNELS = {
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
     }),
     "dense_wint8": ("dense_wint8.cu", [], {
-        "rgrg_dense_wint8": [_P, _I, _P, _P, _P, _I, _P, _P, _P,
+        "rgrg_dense_wint8": [_P, _I, _P, _P, _P, _I, _P,
                              _I, _I, _I, _I, _I, _P],
     }),
 }

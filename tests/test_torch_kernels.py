@@ -18,7 +18,8 @@ import torch
 
 from rgrg_tpu_torch.models.gpt2 import _quantize_kv
 from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
-from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8, dense_wint8_plain
+from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, dense_wint8,
+                                            dense_wint8_plain, launch, plan)
 from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
 from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
 
@@ -214,7 +215,8 @@ def test_dense_wint8_kernel_equals_plain(cuda, dtype, m, k, n):
         assert dense_wint8.launches == before + 1
         assert got.dtype == dtype and tuple(got.shape) == (m, n)
         assert_wint8_close(tx, tq, ts, got, dense_wint8_plain(tx, tq, ts, bias))
-        # the split-K fixup leaves its counts zeroed: a second launch agrees
+        # the cluster reduces split-K in a fixed order: a second launch is
+        # bit-identical
         assert torch.equal(dense_wint8(tx, tq, ts, bias), got)
 
 
@@ -227,3 +229,117 @@ def test_dense_wint8_kernel_leading_dims(cuda):
     got = dense_wint8(tx, tq, ts, tb)
     assert tuple(got.shape) == (4, 16, 512)
     assert_wint8_close(tx, tq, ts, got, dense_wint8_plain(tx, tq, ts, tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+def test_dense_wint8_kernel_every_cluster_size(cuda, dtype, splits):
+    """K split over 1-8 blocks of one cluster (forced plans, the decoder's
+    c_fc shape at 64 rows, and a ragged M that ends inside a rank's rows);
+    each result within tolerance and bit-identical on a second launch."""
+    for m, k, n in ((64, 1024, 4096), (45, 1024, 384)):
+        x, q, s, b = wint8_inputs(m, k, n, seed=splits)
+        tx = torch.from_numpy(x).to(cuda, dtype)
+        tq, ts = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+        tb = torch.from_numpy(b).to(cuda, dtype)
+        per_split = -(-k // splits // BLOCK_K[dtype]) * BLOCK_K[dtype]
+        assert -(-k // per_split) == splits
+        outs = []
+        for _ in range(2):
+            out = torch.empty((m, n), dtype=dtype, device=cuda)
+            before = dense_wint8.launches
+            outs.append(launch(tx, tq, ts, tb, out, splits, per_split))
+            assert dense_wint8.launches == before + 1
+        torch.cuda.synchronize()
+        assert_wint8_close(tx, tq, ts, outs[0], dense_wint8_plain(tx, tq, ts, tb))
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["n_not_16", "k_not_8", "x_unaligned", "q_unaligned"])
+def test_dense_wint8_kernel_element_route(cuda, dtype, case):
+    """Shapes the 16-byte copies cannot take load element by element: N %
+    16 != 0, K % 8 != 0, and x or q at a base not 16-byte aligned (a
+    contiguous view at an odd element offset)."""
+    m, k, n = {"n_not_16": (64, 1024, 1000), "k_not_8": (64, 1026, 1024),
+               "x_unaligned": (64, 1024, 1024), "q_unaligned": (33, 256, 1024)}[case]
+    x, q, s, b = wint8_inputs(m, k, n, seed=k + n)
+    tx = torch.from_numpy(x).to(cuda, dtype)
+    tq = torch.from_numpy(q).to(cuda)
+    if case == "x_unaligned":
+        tx = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), tx.reshape(-1)])[1:]
+        tx = tx.reshape(m, k)
+        assert tx.is_contiguous() and tx.data_ptr() % 16 != 0
+    if case == "q_unaligned":
+        tq = torch.cat([torch.zeros(3, dtype=torch.int8, device=cuda), tq.reshape(-1)])[3:]
+        tq = tq.reshape(k, n)
+        assert tq.is_contiguous() and tq.data_ptr() % 16 != 0
+    ts, tb = torch.from_numpy(s).to(cuda), torch.from_numpy(b).to(cuda, dtype)
+    before = dense_wint8.launches
+    got = dense_wint8(tx, tq, ts, tb)
+    torch.cuda.synchronize()
+    assert dense_wint8.launches == before + 1
+    assert_wint8_close(tx, tq, ts, got, dense_wint8_plain(tx, tq, ts, tb))
+    assert torch.equal(dense_wint8(tx, tq, ts, tb), got)
+
+
+@pytest.mark.cuda
+def test_dense_wint8_kernel_rejects_bad_plan(cuda):
+    x, q, s, b = wint8_inputs(64, 1024, 1024)
+    tx, tq, ts = (torch.from_numpy(v).to(cuda) for v in (x, q, s))
+    out = torch.empty((64, 1024), device=cuda)
+    for splits, per_split in ((9, 128), (2, 100), (4, 512), (2, 256)):
+        with pytest.raises(RuntimeError, match="dense_wint8 launch failed"):
+            launch(tx, tq, ts, None, out, splits, per_split)
+
+
+# ---------------------------------------------------------- the planner (CPU)
+
+# (M, K, N) of GPT-2 Medium's four per-layer products at the greedy row
+# budget and at 256 beam lanes -> (splits, K per split) on 132 SMs, bf16 x
+DECODER_PLANS = {
+    (64, 1024, 3072): (4, 256), (64, 1024, 1024): (8, 128),
+    (64, 1024, 4096): (4, 256), (64, 4096, 1024): (8, 512),
+    (256, 1024, 3072): (2, 512), (256, 1024, 1024): (4, 256),
+    (256, 1024, 4096): (2, 512), (256, 4096, 1024): (8, 512),
+}
+
+
+# the same shapes with f32 x (bound by operations): one wave of two blocks
+# per SM, as many splits as fit
+DECODER_PLANS_F32 = {
+    (64, 1024, 3072): (8, 128), (64, 1024, 1024): (8, 128),
+    (64, 1024, 4096): (8, 128), (64, 4096, 1024): (8, 512),
+    (256, 1024, 3072): (2, 512), (256, 1024, 1024): (8, 128),
+    (256, 1024, 4096): (2, 512), (256, 4096, 1024): (8, 512),
+}
+
+
+@pytest.mark.parametrize("dtype, shape", [
+    pytest.param(dtype, s, id=prefix + "x".join(map(str, s)))
+    for dtype, prefix, plans in ((torch.bfloat16, "", DECODER_PLANS),
+                                 (torch.float32, "f32-", DECODER_PLANS_F32))
+    for s in plans])
+def test_dense_wint8_plan_at_decoder_shapes(dtype, shape):
+    m, k, n = shape
+    want = (DECODER_PLANS if dtype == torch.bfloat16 else DECODER_PLANS_F32)[shape]
+    assert plan(m, n, k, dtype, 132) == want
+
+
+def test_dense_wint8_plan_invariants():
+    """Every plan the kernel can get: 1-8 splits (one portable cluster),
+    K per split a whole number of K steps, every split non-empty, K
+    covered."""
+    rng = np.random.default_rng(0)
+    shapes = [(int(m), int(n), int(k)) for m, n, k in rng.integers(1, 5000, (300, 3))]
+    shapes += [(64, 1024, k) for k in range(0, 1300, 7)]
+    for m, n, k in shapes:
+        for dtype, block_k in BLOCK_K.items():
+            for sms in (1, 16, 132):
+                splits, per_split = plan(m, n, k, dtype, sms)
+                assert 1 <= splits <= MAX_SPLITS
+                assert per_split > 0 and per_split % block_k == 0
+                assert splits * per_split >= k
+                assert splits == 1 or (splits - 1) * per_split < k
