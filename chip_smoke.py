@@ -14,8 +14,10 @@ Phases (any failed check raises and the script exits non-zero):
      <= 1e-4);
   5. K3 beam attention: kernel vs plain PyTorch at the beam path's shape
      (384 lanes = 96 items x 4 beams, 16 heads, 61 slots, 64 dims, a
-     simulated ancestry, slot 31) with f32, bf16 and int8 caches (max abs
-     error <= 1e-5 f32, <= 1e-4 bf16/int8);
+     simulated ancestry) at slots 2, 31 and 59 with f32, bf16 and int8
+     caches (max abs error <= 1e-5 f32, <= 1e-4 bf16/int8; bit-identical
+     on a relaunch), timed cold (caches cycled past the L2 cache) and warm
+     (one cache relaunched), each slot with its own bound;
   6. K4 dense_wint8: kernel vs plain PyTorch at the decoder's four
      products (K, N) in {(1024, 3072), (1024, 1024), (1024, 4096),
      (4096, 1024)} at M = 64 and 256 rows, and one ragged shape (5, 96,
@@ -104,7 +106,9 @@ MAX_LENGTH = 60
 BEAMS = 4            # the product default (GenerationConfig.num_beams)
 # beam attention at the beam path's shape: 96 items (the row budget of 65-96
 # selected regions) x 4 beams, GPT-2 Medium heads, 1 + MAX_LENGTH slots
-K3_SHAPE = dict(items=96, beams=BEAMS, heads=16, slots=1 + MAX_LENGTH, dim=64, slot=31)
+K3_SHAPE = dict(items=96, beams=BEAMS, heads=16, slots=1 + MAX_LENGTH, dim=64)
+# the first, middle and last slot a max_length-60 beam decode attends to
+K3_SLOTS = (2, 31, 59)
 K3_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4}
 # K4 at the decoder's four products per layer (c_attn, attn c_proj, c_fc,
 # mlp c_proj of GPT-2 Medium) at the greedy row budget (64) and at 256 rows
@@ -285,15 +289,15 @@ def phase_roi(np, torch, dev, result):
     result["roi_align"] = rows
 
 
-def k3_inputs(np, torch, dev, kind, seed=2):
-    """Unit-scale q/k/v and an ancestry grown as beam search grows it: each
-    step every beam picks a random parent beam of its item and owns the
-    slot it writes (so beams share early history, as real ones do)."""
+def k3_inputs(np, torch, dev, kind, slot, seed=2):
+    """Unit-scale q/k/v and an ancestry grown as beam search grows it up to
+    `slot`: each step every beam picks a random parent beam of its item and
+    owns the slot it writes (so beams share early history, as real ones
+    do)."""
     from rgrg_tpu_torch.models.gpt2 import _quantize_kv
     sh = K3_SHAPE
     rng = np.random.default_rng(seed)
-    b, k, h, t, d, slot = (sh["items"], sh["beams"], sh["heads"], sh["slots"],
-                           sh["dim"], sh["slot"])
+    b, k, h, t, d = sh["items"], sh["beams"], sh["heads"], sh["slots"], sh["dim"]
     anc = np.broadcast_to(np.arange(k, dtype=np.int32)[None, :, None], (b, k, t)).copy()
     for s in range(2, slot + 1):
         parent = rng.integers(0, k, (b, k))
@@ -309,62 +313,93 @@ def k3_inputs(np, torch, dev, kind, seed=2):
         kv, scales = [kq, vq], {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
     else:
         kv = [x.to(dtype) for x in kv]
-    return q, kv[0], kv[1], torch.from_numpy(anc).to(dev), slot, scales
+    return q, kv[0], kv[1], torch.from_numpy(anc).to(dev), scales
 
 
 def phase_beam_attn(np, torch, dev, result):
-    from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
+    """K3 against its plain version at the beam path's shape, at the first,
+    middle and last slot of a max_length-60 decode, with f32, bf16 and int8
+    caches; bit-identical on a relaunch. Device time warm (one cache,
+    relaunched: its named rows stay in the L2 cache, as PR 2-4 timed it)
+    and cold (each launch reads another copy of the cache, cycling enough
+    copies that the rows they name fill twice the L2 cache, as the decode
+    step finds every layer's cache), beside the plain version and the
+    gather + SDPA yardstick."""
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain, plan
+    from rgrg_tpu_torch.ops.kernels import sm_count
     rows = {}
-    for kind in ("bf16", "f32", "int8"):
-        q, k, v, anc, slot, scales = k3_inputs(np, torch, dev, kind)
-        scale = K3_SHAPE["dim"] ** -0.5
-        got = beam_attention(q, k, v, anc, slot, scale=scale, **scales)
-        want = beam_attention_plain(q, k, v, anc, slot, scale=scale, **scales)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        check(bool(torch.isfinite(got).all()), f"beam attention non-finite ({kind})")
-        check(err <= K3_TOL[kind], f"beam attention kernel vs plain max abs err {err} "
-              f"({kind}, tolerance {K3_TOL[kind]})")
-        ms = cuda_ms(torch, lambda: beam_attention(q, k, v, anc, slot, scale=scale,
-                                                   **scales), 200)
-        plain_ms = cuda_ms(torch, lambda: beam_attention_plain(q, k, v, anc, slot,
-                                                               scale=scale, **scales), 10)
-        # yardstick, used nowhere in the port: gather the named rows, then
-        # PyTorch's fused attention (two calls; no single call does both)
-        two_call_ms = None
-        if kind != "int8":
-            def gather_sdpa():
-                bk, h, d = q.shape
-                base = torch.arange(anc.shape[0], device=dev)[:, None, None] * anc.shape[1]
-                lanes = (base + anc.long()).reshape(bk, -1)[:, :slot + 1]
-                idx = lanes[None, :, :, None].expand(h, bk, slot + 1, d)
-                kg = torch.gather(k[:, :, :slot + 1], 1, idx).transpose(0, 1)
-                vg = torch.gather(v[:, :, :slot + 1], 1, idx).transpose(0, 1)
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None], kg, vg, scale=scale)
-            lib = gather_sdpa()[:, :, 0].float()
-            check((lib - want).abs().max().item() <= 2e-2, "gather+SDPA yardstick disagrees")
-            two_call_ms = cuda_ms(torch, gather_sdpa, 50)
-        # bound: each (cache lane, slot) row the ancestry names is read once
-        a = anc.cpu().numpy()[:, :, :slot + 1]
-        pairs = int(sum(len(np.unique(a[:, :, t][i])) for t in range(a.shape[2])
-                        for i in range(a.shape[0])))
-        bk, h, d = q.shape
-        row_bytes = h * d * k.element_size() + (h * 4 if scales else 0)
-        nbytes = (2 * pairs * row_bytes + q.numel() * q.element_size()
-                  + bk * (slot + 1) * 4 + got.numel() * 4)
-        flops = 4 * bk * (slot + 1) * h * d
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        rows[kind] = dict(ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
-                          max_abs_err=err, bound_ms=max(t_bytes, t_ops) * 1e3,
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bytes=nbytes, flops=flops, lane_slot_pairs=pairs)
-        log(f"K3 beam_attention {kind}: q {tuple(q.shape)} cache {tuple(k.shape)} slot "
-            f"{slot} max_abs_err {err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"gather+SDPA {two_call_ms if two_call_ms is None else round(two_call_ms, 4)} "
-            f"ms, bound {rows[kind]['bound_ms']:.4f} ms ({rows[kind]['bound_by']}: "
-            f"{nbytes} B over {pairs} named (lane, slot) rows = {t_bytes * 1e3:.4f} ms, "
-            f"{flops} FLOP = {t_ops * 1e3:.4f} ms) [{result['card']}]")
+    scale = K3_SHAPE["dim"] ** -0.5
+    for slot in K3_SLOTS:
+        for kind in ("bf16", "f32", "int8"):
+            q, k, v, anc, scales = k3_inputs(np, torch, dev, kind, slot)
+            got = beam_attention(q, k, v, anc, slot, scale=scale, **scales)
+            want = beam_attention_plain(q, k, v, anc, slot, scale=scale, **scales)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(bool(torch.isfinite(got).all()), f"beam attention non-finite ({kind})")
+            check(err <= K3_TOL[kind], f"beam attention kernel vs plain max abs err {err} "
+                  f"({kind}, slot {slot}, tolerance {K3_TOL[kind]})")
+            check(torch.equal(beam_attention(q, k, v, anc, slot, scale=scale, **scales), got),
+                  f"beam attention differs on a relaunch ({kind}, slot {slot})")
+            # bound: each (cache lane, slot) row the ancestry names is read once
+            a = anc.cpu().numpy()[:, :, :slot + 1]
+            pairs = int(sum(len(np.unique(a[:, :, t][i])) for t in range(a.shape[2])
+                            for i in range(a.shape[0])))
+            bk, h, d = q.shape
+            row_bytes = h * d * k.element_size() + (h * 4 if scales else 0)
+            named = 2 * pairs * row_bytes
+            nbytes = (named + q.numel() * q.element_size() + bk * (slot + 1) * 4
+                      + got.numel() * 4)
+            flops = 4 * bk * (slot + 1) * h * d
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+            copies = max(3, 1 + -(-int(2 * L2_BYTES) // named))
+            caches = itertools.cycle(
+                [(k, v, scales)] + [(k.clone(), v.clone(), {n: x.clone() for n, x in scales.items()})
+                                    for _ in range(copies - 1)])
+
+            def cold():
+                kc, vc, sc = next(caches)
+                beam_attention(q, kc, vc, anc, slot, scale=scale, **sc)
+            ms = cuda_ms(torch, cold, 200)
+            warm_ms = cuda_ms(torch, lambda: beam_attention(q, k, v, anc, slot, scale=scale,
+                                                            **scales), 200)
+            plain_ms = cuda_ms(torch, lambda: beam_attention_plain(q, k, v, anc, slot,
+                                                                   scale=scale, **scales), 10)
+            del caches
+            # yardstick, used nowhere in the port: gather the named rows, then
+            # PyTorch's fused attention (two calls; no single call does both)
+            two_call_ms = None
+            if kind != "int8":
+                def gather_sdpa():
+                    base = torch.arange(anc.shape[0], device=dev)[:, None, None] * anc.shape[1]
+                    lanes = (base + anc.long()).reshape(bk, -1)[:, :slot + 1]
+                    idx = lanes[None, :, :, None].expand(h, bk, slot + 1, d)
+                    kg = torch.gather(k[:, :, :slot + 1], 1, idx).transpose(0, 1)
+                    vg = torch.gather(v[:, :, :slot + 1], 1, idx).transpose(0, 1)
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q[:, :, None], kg, vg, scale=scale)
+                lib = gather_sdpa()[:, :, 0].float()
+                check((lib - want).abs().max().item() <= 2e-2, "gather+SDPA yardstick disagrees")
+                two_call_ms = cuda_ms(torch, gather_sdpa, 50)
+            p = plan(bk, K3_SHAPE["beams"], h, d, k.shape[2], k.dtype,
+                     sm_count(torch.cuda.current_device()))
+            row = dict(slot=slot, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                       two_call_ms=two_call_ms, max_abs_err=err,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, flops=flops, lane_slot_pairs=pairs, cold_copies=copies,
+                       plan=p._asdict())
+            rows[f"{kind} slot {slot}"] = row
+            log(f"K3 beam_attention {kind} slot {slot}: q {tuple(q.shape)} cache "
+                f"{tuple(k.shape)} max_abs_err {err:.3e}, relaunch bit-identical; kernel cold "
+                f"{ms:.4f} ms ({copies} caches cycled), warm {warm_ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, gather+SDPA "
+                f"{two_call_ms if two_call_ms is None else round(two_call_ms, 4)} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} B over {pairs} named "
+                f"(lane, slot) rows = {t_bytes * 1e3:.4f} ms, {flops} FLOP = "
+                f"{t_ops * 1e3:.4f} ms); plan {tuple(p)} [{result['card']}]")
+            del q, k, v, anc, scales, got, want
+            torch.cuda.empty_cache()
     result["beam_attention"] = rows
 
 
@@ -429,9 +464,10 @@ def phase_dense_wint8(np, torch, dev, result):
     and, at the decoder's shapes, the time of every other split count the
     kernel takes; at M = 64 bf16 the wrapper's host cost per call beside
     one `torch.addmm`'s."""
-    from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, _sm_count, dense_wint8,
+    from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, dense_wint8,
                                                 dense_wint8_plain, launch, plan)
-    sms = _sm_count(torch.cuda.current_device())
+    from rgrg_tpu_torch.ops.kernels import sm_count
+    sms = sm_count(torch.cuda.current_device())
     shapes = [(name, m, k, n) for m in K4_ROWS for name, (k, n) in K4_PRODUCTS.items()]
     shapes.append(("ragged",) + K4_RAGGED)
     rows = {}
@@ -1273,7 +1309,8 @@ def main() -> int:
         phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
-    k1, k2, k3 = result["nms"], result["roi_align"]["bf16"], result["beam_attention"]["bf16"]
+    k1, k2 = result["nms"], result["roi_align"]["bf16"]
+    k3 = result["beam_attention"]["bf16 slot 31"]
     kernels_line = {"kernels": [
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
@@ -1292,7 +1329,9 @@ def main() -> int:
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
          "launches": launches["beam_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
+         "bound_by": k3["bound_by"], "library_ms": None, "warm_ms": k3["warm_ms"],
+         "shape": "384 lanes (96 items x 4 beams), 16 heads x 64 dims, slot 31, bf16 "
+                  "cache; ms cold (caches cycled past the L2), warm_ms relaunched on one"},
         {"name": "dense_wint8", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
          "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",

@@ -65,17 +65,6 @@ def _check(x, q, scale, bias) -> None:
         raise ValueError("all inputs must be on one device")
 
 
-# the current CUDA stream of a device as an int, without building a Stream
-# object (PyTorch's CUDA builds export the raw getter)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
-    lambda index: torch.cuda.current_stream(index).cuda_stream)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, n: int, k: int, dtype: torch.dtype, sms: int) -> Tuple[int, int]:
     """(splits, K per split) of one launch over M x N x K with x of `dtype`.
@@ -117,7 +106,7 @@ def launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         x2.data_ptr(), _X_KIND[x2.dtype], q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(),
-        m, q.shape[1], k, splits, per_split, _raw_stream(x2.get_device()))
+        m, q.shape[1], k, splits, per_split, kernels.raw_stream(x2.get_device()))
     kernels.check(lib, code, "dense_wint8")
     dense_wint8.launches += 1
     return out
@@ -146,7 +135,7 @@ def dense_wint8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     m = x2.shape[0]
     out = x2.new_empty((m, n))
     if m and n:
-        splits, per_split = plan(m, n, k, x.dtype, _sm_count(x.get_device()))
+        splits, per_split = plan(m, n, k, x.dtype, kernels.sm_count(x.get_device()))
         launch(x2, q, scale, bias, out, splits, per_split)
     return out if flat else out.reshape(x.shape[:-1] + (n,))
 

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rgrg_tpu_torch"
 
@@ -44,7 +46,9 @@ KERNELS = {
     }),
     "beam_attn": ("beam_attn.cu", [], {
         "rgrg_beam_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _I, _I, _P],
+        "rgrg_beam_attention_smem": [_I, _I, _I, _I, _I],
     }),
     "dense_wint8": ("dense_wint8.cu", [], {
         "rgrg_dense_wint8": [_P, _I, _P, _P, _P, _I, _P,
@@ -130,3 +134,15 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.rgrg_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+# the current CUDA stream of a device as an int, without building a Stream
+# object (PyTorch's CUDA builds export the raw getter)
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from rgrg_tpu_torch.models.gpt2 import _quantize_kv
+from rgrg_tpu_torch.ops import beam_attn, kernels
 from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
 from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, dense_wint8,
                                             dense_wint8_plain, launch, plan)
@@ -137,15 +138,30 @@ def test_roi_align_kernel_equals_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("heads,dim,t0", [(16, 64, 0), (4, 16, 0), (2, 100, 1)],
-                         ids=["gpt2_medium", "narrow", "wide_slot0_hidden"])
-def test_beam_attention_kernel_equals_plain(cuda, kind, heads, dim, t0):
-    """Both read the same stored values and compute in f32; they differ
-    only in summation order and the softmax's running rescale (~1e-6)."""
-    rng = np.random.default_rng(heads + dim)
-    items, beams, t, slot = 6, 4, 13, 9
+def k3_ancestry(pattern, items, beams, t, slot, rng):
+    """[items, beams, t] int32 ancestor beams. "random": any beam at any
+    slot; "one_lane": every beam reads beam 0's lane (one row per slot);
+    "distinct": each beam its own lane (K rows per slot); "grown": as beam
+    search grows it, each step every beam picks a random parent of its item
+    and owns the slot it writes, so beams share early history."""
+    if pattern == "random":
+        return rng.integers(0, beams, (items, beams, t)).astype(np.int32)
+    if pattern == "one_lane":
+        return np.zeros((items, beams, t), np.int32)
+    anc = np.broadcast_to(np.arange(beams, dtype=np.int32)[None, :, None],
+                          (items, beams, t)).copy()
+    if pattern == "grown":
+        for s in range(2, slot + 1):
+            parent = rng.integers(0, beams, (items, beams))
+            anc = np.take_along_axis(anc, parent[:, :, None], axis=1)
+            anc[:, :, s] = np.arange(beams)
+    return anc
+
+
+def k3_inputs(cuda, kind, items, beams, heads, dim, t, slot, pattern, seed):
+    """q, k, v ~ N(0, 1) in `kind` (int8: quantized as the decoder's cache,
+    with its scales), an ancestry of `pattern`; all on the card."""
+    rng = np.random.default_rng(seed)
     bk = items * beams
     dtype = torch.float32 if kind == "f32" else torch.bfloat16
     q = torch.from_numpy(rng.normal(0, 1, (bk, heads, dim)).astype(np.float32)).to(cuda, dtype)
@@ -157,13 +173,77 @@ def test_beam_attention_kernel_equals_plain(cuda, kind, heads, dim, t0):
         scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
     else:
         k, v = k.to(dtype), v.to(dtype)
-    anc = torch.from_numpy(rng.integers(0, beams, (items, beams, t)).astype(np.int32)).to(cuda)
+    anc = torch.from_numpy(k3_ancestry(pattern, items, beams, t, slot, rng)).to(cuda)
+    return q, k, v, anc, scales
+
+
+# (heads, dim, t0, T, slot): the decoder's heads, narrow heads, 100 dims
+# (rows of 200 bf16 / 100 int8 bytes take the element-wise copies) with
+# slot 0 hidden, and a slot range longer than one staging chunk
+K3_SHAPES = {"gpt2_medium": (16, 64, 0, 13, 9), "narrow": (4, 16, 0, 13, 9),
+             "wide_slot0_hidden": (2, 100, 1, 13, 9), "long": (16, 64, 0, 61, 60)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+@pytest.mark.parametrize("pattern", ["random", "one_lane", "distinct", "grown"])
+@pytest.mark.parametrize("beams", [2, 4])
+def test_beam_attention_kernel_equals_plain(cuda, kind, shape, pattern, beams):
+    """Both read the same stored values and compute in f32; they differ
+    only in summation order and the softmax's running rescale (~1e-6)."""
+    heads, dim, t0, t, slot = K3_SHAPES[shape]
+    q, k, v, anc, scales = k3_inputs(cuda, kind, 24 // beams, beams, heads, dim, t, slot,
+                                     pattern, seed=heads + dim)
     before = beam_attention.launches
     got = beam_attention(q, k, v, anc, slot, scale=dim ** -0.5, t0=t0, **scales)
     torch.cuda.synchronize()
     assert beam_attention.launches == before + 1
     want = beam_attention_plain(q, k, v, anc, slot, scale=dim ** -0.5, t0=t0, **scales)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("plan_", [(1, 1, 1), (3, 3, 5), (8, 2, 8), (4, 4, 16), (2, 2, 7),
+                                   (5, 3, 9), (1, 16, 8), (8, 1, 32)],
+                         ids=lambda p: "x".join(map(str, p)))
+def test_beam_attention_kernel_every_plan(cuda, kind, plan_):
+    """Forced plans (beams and heads a block, slots a chunk) over 12 beams
+    of 2 items and 16 heads: beam and head groups that do not divide K and
+    H, chunks of one slot and chunks that end mid-range, more shared memory
+    than 48 KB."""
+    beams, heads, slots = plan_
+    q, k, v, anc, scales = k3_inputs(cuda, kind, 2, 12, 16, 64, 61, 47, "grown", seed=3)
+    p = beam_attn.Plan(beams, heads, slots, 32 * beams * heads,
+                       beam_attn.smem_bytes(k.dtype, 64, beams, heads, slots))
+    out = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+    beam_attn.launch(q, k, v, anc, 47, 0.125, 2, scales.get("k_scale"), scales.get("v_scale"),
+                     out, p)
+    torch.cuda.synchronize()
+    want = beam_attention_plain(q, k, v, anc, 47, scale=0.125, t0=2, **scales)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_beam_attention_kernel_relaunch_bit_identical(cuda, kind):
+    q, k, v, anc, scales = k3_inputs(cuda, kind, 12, 4, 16, 64, 61, 59, "grown", seed=5)
+    first = beam_attention(q, k, v, anc, 59, scale=0.125, **scales)
+    second = beam_attention(q, k, v, anc, 59, scale=0.125, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_beam_attention_smem_matches_kernel(cuda):
+    """The planner's shared-memory count equals the kernel's layout."""
+    lib = kernels.library("beam_attn")
+    for dtype, kind in ((torch.float32, 0), (torch.bfloat16, 1), (torch.int8, 2)):
+        for d in (1, 16, 63, 64, 100, 128):
+            for plan_ in ((1, 1, 1), (4, 1, 32), (8, 2, 32), (3, 5, 7)):
+                assert (lib.rgrg_beam_attention_smem(kind, d, *plan_)
+                        == beam_attn.smem_bytes(dtype, d, *plan_))
 
 
 def wint8_inputs(m, k, n, seed=0, lead=()):
@@ -343,3 +423,52 @@ def test_dense_wint8_plan_invariants():
                 assert per_split > 0 and per_split % block_k == 0
                 assert splits * per_split >= k
                 assert splits == 1 or (splits - 1) * per_split < k
+
+
+# K3 at the beam path's shapes (B*K lanes, K = 4, 16 heads of 64 dims, 61
+# slots) -> (beams and heads a block, slots a chunk, threads, smem bytes)
+K3_PLANS = {
+    torch.bfloat16: beam_attn.Plan(4, 1, 32, 128, 38912),
+    torch.float32: beam_attn.Plan(4, 1, 16, 128, 36864),
+    torch.int8: beam_attn.Plan(4, 1, 32, 128, 23552),
+}
+
+
+@pytest.mark.parametrize("bk", [256, 384])
+@pytest.mark.parametrize("dtype", list(K3_PLANS), ids=["bf16", "f32", "int8"])
+def test_beam_attention_plan_at_decoder_shapes(dtype, bk):
+    assert beam_attn.plan(bk, 4, 16, 64, 61, dtype, 132) == K3_PLANS[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(K3_PLANS), ids=["bf16", "f32", "int8"])
+def test_beam_attention_plan_invariants(dtype):
+    """Every shape the kernel takes gets a plan it accepts (H <= 32, D <=
+    128, T up to 1024, K up to 8 and beyond): the item's beams in one block
+    up to 8, groups within K and H, a warp per (beam, head) pair and at
+    most 16 pairs, 1-32 slots a chunk, shared memory as the kernel lays it
+    out and within both the plan's budget and the card's 227 KB."""
+    for heads in (1, 2, 5, 16, 32):
+        for d in range(1, beam_attn.MAX_HEAD_DIM + 1):
+            for k_beams in (1, 2, 3, 4, 5, 8, 12):
+                for t in (1, 2, 13, 61, 64, 1024):
+                    p = beam_attn.plan(k_beams * 3, k_beams, heads, d, t, dtype, 132)
+                    assert p.beams == min(k_beams, beam_attn.MAX_BEAMS_PER_BLOCK)
+                    assert 1 <= p.heads <= heads
+                    assert p.beams * p.heads <= beam_attn.MAX_PAIRS
+                    assert p.threads == 32 * p.beams * p.heads
+                    assert 1 <= p.slots <= min(t, beam_attn.MAX_SLOTS)
+                    assert p.smem == beam_attn.smem_bytes(dtype, d, p.beams, p.heads, p.slots)
+                    assert p.smem <= min(beam_attn.SMEM_BUDGET, beam_attn.MAX_SMEM)
+
+
+def test_k3_probe_patches_the_kernel():
+    """tools/k3_probe.py finds each of its anchors in csrc/beam_attn.cu:
+    three builds that stop early and three register bounds, each one change
+    to the source."""
+    from rgrg_tpu_torch.tools import k3_probe
+    src = (kernels.CSRC / "beam_attn.cu").read_text()
+    variants = k3_probe.variants()
+    assert len(variants) == len(k3_probe.STOPS) + 3
+    for name, text in variants.items():
+        assert text != src or name == "min2", name
+        assert text.count("return;") == src.count("return;") + name.startswith("stop"), name
