@@ -8,10 +8,12 @@ Phases (any failed check raises and the script exits non-zero):
   2. build: compiles every kernel of csrc/ with nvcc for sm_90a, in
      parallel, and prints the build time and ptxas resource lines;
   3. K1 NMS: kernel vs plain PyTorch at B=8 x N=1000 score-sorted boxes with
-     ties, duplicates, zero-area and padding boxes (masks bit-identical);
+     ties, duplicates, zero-area and padding boxes (masks bit-identical; the
+     words step alone bit-identical to the plain suppression words), timed
+     whole and its words step alone;
   4. K2 RoIAlign: kernel vs plain PyTorch at feats [8, 16, 16, 2048] in bf16
      and f32 with 256 boxes per image, edge boxes included (max abs error
-     <= 1e-4);
+     <= 1e-4, finite, bit-identical on a relaunch);
   5. K3 beam attention: kernel vs plain PyTorch at the beam path's shape
      (384 lanes = 96 items x 4 beams, 16 heads, 61 slots, 64 dims, a
      simulated ancestry) at slots 2, 31 and 59 with f32, bf16 and int8
@@ -54,8 +56,8 @@ Phases (any failed check raises and the script exits non-zero):
   9. int8 KV cache: the last request's selected regions decoded again,
      greedy and beam 4, with kv_cache_dtype=torch.int8;
  10. breakdown: host preprocessing + upload, detect and decode timed
-     apart, and one greedy and one beam request under torch.profiler
-     (device busy share, top kernels);
+     apart, and one detect, one greedy and one beam request under
+     torch.profiler (device busy share, top kernels);
  11. serving: generate_reports_pipelined over 4 batches of 8 uint8
      2048x2500 X-rays (device resize) at the serving defaults (greedy,
      int8 KV cache, speculation) and max_length 60, once with bf16
@@ -216,15 +218,20 @@ def roi_inputs(np, torch, dev, dtype, b=BATCH, n=256, c=2048, seed=1):
 
 
 def phase_nms(np, torch, dev, result):
-    from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+    from rgrg_tpu_torch.ops.nms import (nms_keep_mask, nms_keep_mask_plain,
+                                        nms_suppression_words, nms_words)
     boxes, valid = nms_inputs(np, torch, dev)
     thr = 0.7
     got = nms_keep_mask(boxes, valid, thr)
     want = nms_keep_mask_plain(boxes, valid, thr)
+    words = nms_words(boxes, thr)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "NMS kernel mask != plain mask")
     check(not got[BATCH - 1].any(), "NMS kept a box of the all-invalid image")
+    check(torch.equal(words, nms_suppression_words(boxes, thr)),
+          "NMS words kernel != plain suppression words")
     ms = cuda_ms(torch, lambda: nms_keep_mask(boxes, valid, thr), 50)
+    words_ms = cuda_ms(torch, lambda: nms_words(boxes, thr), 50)
     plain_ms = cuda_ms(torch, lambda: nms_keep_mask_plain(boxes, valid, thr), 3, warmup=1)
     b, n = valid.shape
     keep = got.cpu().numpy()
@@ -232,10 +239,11 @@ def phase_nms(np, torch, dev, result):
     nbytes = b * n * (16 + 1 + 1)
     flops = 16 * pairs  # ~16 f32 operations per IoU test
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-    log(f"K1 nms: B={b} N={n} kept={int(keep.sum())} identical=True "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms "
+    log(f"K1 nms: B={b} N={n} kept={int(keep.sum())} mask and words identical "
+        f"kernel {ms:.4f} ms (words step alone {words_ms:.4f} ms, with a zeroed "
+        f"scratch), plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms "
         f"({nbytes} B, {pairs} IoU tests) [{result['card']}]")
-    result["nms"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    result["nms"] = dict(ms=ms, words_ms=words_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / F32_FLOP_PER_S else "operations",
                          max_abs_err=0.0, bytes=nbytes, flops=flops, pairs=pairs,
@@ -266,6 +274,8 @@ def phase_roi(np, torch, dev, result):
         check(err <= 1e-4, f"RoIAlign kernel vs plain max abs err {err} ({dtype})")
         check(bool(torch.isfinite(got).all()), "RoIAlign produced non-finite values")
         del want
+        check(torch.equal(roi_align(feats, boxes), got),
+              f"RoIAlign relaunch not bit-identical ({dtype})")
         ms = cuda_ms(torch, lambda: roi_align(feats, boxes), 20)
         plain_ms = cuda_ms(torch, lambda: roi_align_plain(feats, boxes), 3, warmup=1)
         b, n = boxes.shape[:2]
@@ -280,7 +290,8 @@ def phase_roi(np, torch, dev, result):
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
                           bytes=nbytes, flops=flops, taps=taps)
         log(f"K2 roi_align {name}: feats {tuple(feats.shape)} boxes {tuple(boxes.shape)} "
-            f"max_abs_err {err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"max_abs_err {err:.3e}, relaunch bit-identical, kernel {ms:.4f} ms, "
+            f"{rows[name]['bound_ms'] / ms:.1%} of its bound, plain {plain_ms:.3f} ms, "
             f"bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}: "
             f"{nbytes} B = {t_bytes * 1e3:.4f} ms, {flops} FLOP = {t_ops * 1e3:.4f} ms) "
             f"[{result['card']}]")
@@ -968,14 +979,17 @@ def timed(torch, fn, reps=3):
 def breakdown(torch, gen, params, images, decode_ms, steady_ms, name, **kw):
     """Where a request's time goes: the host preprocessing with its upload,
     the detector and the decode cascade timed apart (host clock around
-    synchronized work), then one whole request (generate_reports with `kw`)
-    under torch.profiler for device busy time by kernel. Runs after the
-    launch counters were read."""
+    synchronized work), then (greedy only) one detect and one whole request
+    (generate_reports with `kw`) under torch.profiler for device busy time
+    by kernel. Runs after the launch counters were read."""
     x, preprocess_ms = timed(torch, lambda: gen.preprocess(images))
     _, detect_ms = timed(torch, lambda: gen.model.detect(params, x))
     log(f"breakdown {name}: host preprocess + upload {preprocess_ms:.1f} ms, detect "
         f"{detect_ms:.1f} ms, decode cascade {decode_ms:.1f} ms (bf16 cache)")
     out = {"preprocess_ms": preprocess_ms, "detect_ms": detect_ms, "decode_ms": decode_ms}
+    if name == "greedy":  # the detector is the same on both paths: what follows K2
+        out["detect_profile"] = profiled(torch, lambda: gen.model.detect(params, x),
+                                         detect_ms, "breakdown detect", "detect")
     out["profile"] = profiled(
         torch, lambda: gen.generate_reports(images, max_length=MAX_LENGTH, **kw),
         steady_ms, f"breakdown {name}", "request")
@@ -1032,6 +1046,10 @@ def profiled(torch, fn, steady_ms, what, unit):
             log(f"{what}: {kernel} {ms:.2f} ms of device time in {calls} "
                 f"launches ({ms / calls * 1e3:.1f} us each)")
             out[kernel] = {"device_ms": ms, "calls": calls}
+            if len(hits) > 1:  # K1's words and sweep launches, K2's routes
+                out[kernel]["by_name"] = {e.key[:90]: dev_us(e) / 1e3 for e in hits}
+                for e in hits:
+                    log(f"  {dev_us(e) / 1e3:.3f} ms in {e.count} launches: {e.key[:90]}")
     return out
 
 

@@ -39,7 +39,8 @@ KERNELS = {
     # NMS decisions must be bit-identical to the f32 reference: no FMA
     # contraction anywhere in the file
     "nms": ("nms.cu", ["-fmad=false"], {
-        "rgrg_nms_keep_mask": [_P, _P, _P, _I, _I, _F, _P],
+        "rgrg_nms_keep_mask": [_P, _P, _P, _P, _I, _I, _F, _P],
+        "rgrg_nms_words": [_P, _P, _I, _I, _F, _P],
     }),
     "roi_align": ("roi_align.cu", [], {
         "rgrg_roi_align": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

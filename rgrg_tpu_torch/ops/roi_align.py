@@ -12,6 +12,12 @@ cells at extent-1 capped with zero upper weight).
 `roi_align` is the entry the detector calls: on a CPU tensor it runs the
 plain PyTorch version below, on a CUDA tensor it launches kernel K2
 (csrc/roi_align.cu) or raises.
+
+A row of Ay or Ax has at most 2 samples x 2 cells = 4 nonzero weights.
+`roi_tap_tables` keeps only those, as the kernel does, and
+`roi_align_taps_plain` pools over them in the kernel's order (W first,
+then H, ascending cells); the tests hold both against the dense weights
+and the JAX package. They are never on the main path.
 """
 
 from __future__ import annotations
@@ -71,6 +77,57 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor, *,
     f = features.to(torch.float32)
     tmp = torch.einsum("bnph,bhwc->bnpwc", ay, f)
     return torch.einsum("bnpwc,bnqw->bnpqc", tmp, ax)
+
+
+MAX_TAPS = 4  # nonzero cells of one weight row: 2 samples x 2 cells
+
+
+def roi_tap_tables(boxes: torch.Tensor, height: int, width: int,
+                   output_size: int, spatial_scale: float, sampling: int):
+    """boxes [..., 4] -> ((cells_y, weights_y, count_y), (cells_x, weights_x,
+    count_x)): per axis the nonzero cells of each bin row of Ay / Ax in
+    ascending order, cells [..., P, 4] int64 and weights [..., P, 4] f32
+    (padded with cell 0, weight 0), count [..., P] int64. The weights are
+    the dense rows' own values."""
+    if sampling != MAX_TAPS // 2:
+        raise ValueError(f"the tables hold 2 samples x 2 cells, got sampling {sampling}")
+    tables = []
+    for dense in roi_align_weights(boxes, height, width, output_size,
+                                   spatial_scale, sampling):
+        nonzero = dense != 0
+        count = nonzero.sum(-1)
+        extent = dense.shape[-1]
+        # nonzero cells first, in ascending order; then the zero cells
+        order = torch.argsort(torch.where(nonzero, 0, extent)
+                              + torch.arange(extent, device=dense.device), dim=-1)
+        cells = order[..., :MAX_TAPS]
+        weights = torch.gather(dense, -1, cells)
+        pad = torch.arange(MAX_TAPS, device=dense.device) >= count[..., None]
+        tables.append((cells.masked_fill(pad, 0), weights.masked_fill(pad, 0.0), count))
+    return tuple(tables)
+
+
+def roi_align_taps_plain(features: torch.Tensor, boxes: torch.Tensor, *,
+                         output_size: int = 8, spatial_scale: float = 1.0 / 32.0,
+                         sampling_ratio: int = 2) -> torch.Tensor:
+    """RoIAlign over the tap tables, in the kernel's order: for each bin
+    (p, q), sum over the row taps h of Ay[p, h] * (sum over the column taps
+    w of Ax[q, w] * F[h, w, c]). Same signature and result as
+    `roi_align_plain`."""
+    bsz, h, w, c = features.shape
+    (cy, wy, _), (cx, wx, _) = roi_tap_tables(boxes, h, w, output_size,
+                                              spatial_scale, sampling_ratio)
+    f = features.to(torch.float32).reshape(bsz, h * w, c)
+    n, p = boxes.shape[1], output_size
+    out = torch.zeros((bsz, n, p, p, c), dtype=torch.float32, device=features.device)
+    for t in range(MAX_TAPS):
+        u = torch.zeros_like(out)
+        for s in range(MAX_TAPS):
+            cell = cy[..., :, None, t] * w + cx[..., None, :, s]            # [B, N, P, P]
+            v = torch.gather(f, 1, cell.reshape(bsz, -1, 1).expand(-1, -1, c))
+            u = u + wx[..., None, :, s, None] * v.view(bsz, n, p, p, c)
+        out = out + wy[..., :, None, t, None] * u
+    return out
 
 
 def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:

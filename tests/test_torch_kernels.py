@@ -21,7 +21,8 @@ from rgrg_tpu_torch.ops import beam_attn, kernels
 from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
 from rgrg_tpu_torch.ops.dense_wint8 import (BLOCK_K, MAX_SPLITS, dense_wint8,
                                             dense_wint8_plain, launch, plan)
-from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+from rgrg_tpu_torch.ops.nms import (nms_keep_mask, nms_keep_mask_plain,
+                                    nms_suppression_words, nms_words)
 from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
 
 
@@ -80,6 +81,32 @@ def nms_case(name):
 NMS_CASES = ["n1000", "n300_t05", "ties_duplicates", "zero_area_invalid",
              "all_invalid"]
 
+# N around K1's 64-box groups, up to its limit, and images of four kinds
+NMS_SIZES = [1, 63, 64, 65, 130, 2048]
+NMS_KINDS = ["clustered", "all_invalid", "all_disjoint", "chain"]
+
+
+def nms_edge_case(n, kind, seed=0):
+    """(sorted boxes [n, 4] f32, valid [n] bool, threshold 0.7).
+    "clustered": overlapping clusters, a fifth of the boxes invalid;
+    "all_invalid": the same boxes, none valid; "all_disjoint": a grid of
+    boxes that do not touch (all kept); "chain": boxes shifted 1.2 px each,
+    so each suppresses the next (IoU 0.79) but not the one after (0.61):
+    greedy keeps every other box."""
+    if kind in ("clustered", "all_invalid"):
+        b, rng = _clustered(n, 10 + seed)
+        valid = rng.uniform(size=n) > 0.2 if kind == "clustered" else np.zeros(n, bool)
+        return b, valid, 0.7
+    i = np.arange(n, dtype=np.float32)
+    if kind == "all_disjoint":
+        x, y = (i % 46) * 20.0, (i // 46) * 20.0
+        return np.stack([x, y, x + 10, y + 10], 1).astype(np.float32), np.ones(n, bool), 0.7
+    if kind == "chain":
+        x = i * 1.2
+        return (np.stack([x, np.zeros(n), x + 10, np.full(n, 10.0)], 1).astype(np.float32),
+                np.ones(n, bool), 0.7)
+    raise KeyError(kind)
+
 
 def roi_boxes(n, rng):
     """Random boxes plus boxes that cross or lie outside the 512 map and
@@ -96,6 +123,36 @@ def roi_boxes(n, rng):
         [250.3, 250.1, 250.4, 250.2],
     ], np.float32)
     return np.concatenate([b, edge]).astype(np.float32)
+
+
+def sweep_boxes(n, rng):
+    """Boxes of every kind a RoIAlign weight row can see, each axis drawn
+    apart: corners inside, before (negative) and past the 512 map; sizes
+    zero, negative (degenerate), sub-cell, ordinary, and wider than the map
+    (bins over two cells: four taps)."""
+    def axis():
+        start = rng.uniform(-700, 1100, n)
+        size = np.choose(rng.integers(0, 5, n), [
+            np.zeros(n), rng.uniform(-60, 0, n), rng.uniform(0.01, 32, n),
+            rng.uniform(32, 512, n), rng.uniform(512, 3000, n)])
+        return start, start + size
+    x1, x2 = axis()
+    y1, y2 = axis()
+    return np.stack([x1, y1, x2, y2], 1).astype(np.float32)
+
+
+# chip_smoke.py's edge boxes, then boxes wider than the map (four taps a bin)
+EDGE_BOXES = np.array([
+    [0, 0, 512, 512], [500, 500, 512, 512], [0, 0, 0.5, 0.5], [-40, -20, 100, 60],
+    [530, 530, 600, 640], [-90, -90, -10, -5]], np.float32)
+WIDE_BOXES = np.array([[-300, -250, 900, 800], [-1000, 0, 1500, 512],
+                       [0, -900, 512, 1400]], np.float32)
+
+
+def roi_edge_boxes(n, rng):
+    """n boxes: the wide ones first, then the edge ones, then a sweep."""
+    fixed = np.concatenate([WIDE_BOXES, EDGE_BOXES])
+    return np.concatenate([fixed, sweep_boxes(max(n - len(fixed), 0), rng)])[:n]
 
 
 @pytest.fixture
@@ -136,6 +193,67 @@ def test_roi_align_kernel_equals_plain(cuda, dtype):
     assert roi_align.launches == before + 1
     want = roi_align_plain(feats, bx)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", NMS_KINDS)
+@pytest.mark.parametrize("n", NMS_SIZES)
+def test_nms_kernel_sizes_equal_plain(cuda, n, kind):
+    b, valid, thr = nms_edge_case(n, kind)
+    tb, tv = torch.from_numpy(b)[None].to(cuda), torch.from_numpy(valid)[None].to(cuda)
+    got = nms_keep_mask(tb, tv, thr)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  nms_keep_mask_plain(tb, tv, thr).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", NMS_SIZES)
+def test_nms_kernel_batch8_equals_plain(cuda, n):
+    cases = [nms_edge_case(n, kind, seed) for seed in range(2) for kind in NMS_KINDS]
+    tb = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda)
+    tv = torch.from_numpy(np.stack([c[1] for c in cases])).to(cuda)
+    before = nms_keep_mask.launches
+    got = nms_keep_mask(tb, tv, 0.7)
+    torch.cuda.synchronize()
+    assert nms_keep_mask.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  nms_keep_mask_plain(tb, tv, 0.7).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", NMS_SIZES)
+def test_nms_words_kernel_equals_model(cuda, n):
+    """K1's words step alone equals the plain bitmask model bit for bit."""
+    cases = [nms_edge_case(n, kind) for kind in NMS_KINDS]
+    tb = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda)
+    got = nms_words(tb, 0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_suppression_words(tb, 0.7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 256])
+@pytest.mark.parametrize("c", [4, 100, 102, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_shapes(cuda, dtype, c, n):
+    """C 4, 100 and 2048 take the 4-channel route (100: a partial block),
+    102 the one-channel route; N 1 is a box wider than the map (four taps
+    a bin), 7 adds chip_smoke's edge boxes, 256 a sweep of every kind. A
+    relaunch is bit-identical."""
+    rng = np.random.default_rng(c + n)
+    feats = torch.from_numpy(rng.normal(0, 1, (2, 16, 16, c)).astype(np.float32))
+    feats = feats.to(cuda, dtype)
+    bx = torch.from_numpy(np.stack([roi_edge_boxes(n, rng), roi_edge_boxes(n, rng)[::-1].copy()]))
+    bx = bx.to(cuda)
+    before = roi_align.launches
+    got = roi_align(feats, bx)
+    again = roi_align(feats, bx)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, roi_align_plain(feats, bx), rtol=1e-4, atol=1e-4)
 
 
 def k3_ancestry(pattern, items, beams, t, slot, rng):
@@ -472,3 +590,27 @@ def test_k3_probe_patches_the_kernel():
     for name, text in variants.items():
         assert text != src or name == "min2", name
         assert text.count("return;") == src.count("return;") + name.startswith("stop"), name
+
+
+def test_k12_probe_patches_the_kernel():
+    """tools/k12_probe.py finds its anchors in csrc/roi_align.cu: the kernel
+    as it is, one with plain stores, one on the one-channel route, one at
+    most 64 registers a thread (each one change to the source) and one
+    with bulk-copy stores on the 4-channel route (the kernel's own code
+    kept for the one-channel route)."""
+    from rgrg_tpu_torch.tools import k12_probe
+    src = (kernels.CSRC / "roi_align.cu").read_text()
+    variants = k12_probe.roi_variants()
+    assert sorted(variants) == ["bounds8", "bulk_stores", "cached_stores", "one_channel",
+                                "taps"]
+    assert variants["taps"] == src
+    assert variants["cached_stores"].count("#define __stcs") == 1
+    assert variants["one_channel"].count("const bool vec = false &&") == 1
+    assert variants["bounds8"].count("__launch_bounds__(kThreads, 8)") == 1
+    for name in ("cached_stores", "one_channel", "bounds8"):
+        assert len(variants[name].splitlines()) - len(src.splitlines()) in (0, 1)
+    bulk = variants["bulk_stores"]
+    assert bulk.count("if constexpr (V == 1) {") == 1 and bulk.count("cp.async.bulk.global") == 1
+    assert bulk.count("{") == bulk.count("}") and src.count("{") == src.count("}")
+    assert bulk.startswith(src[:src.index(k12_probe.BODY)])
+    assert bulk.endswith(src[src.index(k12_probe.KERNEL_END):])

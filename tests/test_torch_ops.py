@@ -26,11 +26,16 @@ from rgrg_tpu.ops.roi_align_pallas import roi_align_pallas_batched
 from rgrg_tpu_torch.core.config import AnchorConfig
 from rgrg_tpu_torch.core.device import resolve_device
 from rgrg_tpu_torch.ops import anchors, boxes, resize
-from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
-from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+from rgrg_tpu_torch.ops.nms import (nms_keep_mask, nms_keep_mask_plain,
+                                    nms_suppression_words, nms_sweep_words)
+from rgrg_tpu_torch.ops.roi_align import (roi_align, roi_align_plain,
+                                          roi_align_taps_plain, roi_align_weights,
+                                          roi_tap_tables)
 
 from tests.oracles import decode_boxes_oracle, nms_oracle
-from tests.test_torch_kernels import NMS_CASES, nms_case, random_boxes, roi_boxes
+from tests.test_torch_kernels import (NMS_CASES, NMS_KINDS, NMS_SIZES, nms_case,
+                                      nms_edge_case, random_boxes, roi_boxes,
+                                      roi_edge_boxes, sweep_boxes)
 
 
 # ---------------------------------------------------------------- box math
@@ -173,6 +178,40 @@ def test_nms_wrapper_cpu_dispatch_and_checks():
         nms_keep_mask(tb, tv[:, :10], thr)
 
 
+# K1's design: a suppression word per (box, 64-box group), then a sweep
+
+@pytest.mark.parametrize("name", NMS_CASES)
+def test_nms_bitmask_model_identical_to_jax(name):
+    b, valid, thr = nms_case(name)
+    tb, tv = torch.from_numpy(b)[None], torch.from_numpy(valid)[None]
+    got = nms_sweep_words(nms_suppression_words(tb, thr), tv)[0].numpy()
+    np.testing.assert_array_equal(got, nms_keep_mask_plain(tb, tv, thr)[0].numpy())
+    pallas = np.asarray(nms_keep_mask_pallas(jnp.asarray(b), jnp.asarray(valid),
+                                             thr, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("kind", NMS_KINDS)
+@pytest.mark.parametrize("n", NMS_SIZES)
+def test_nms_bitmask_model_sizes(n, kind):
+    """N around the 64-box groups and at the kernel's limit: the words hold
+    bit k of group g for box j = 64 g + k after box i, nothing else, and
+    their sweep equals the plain greedy mask."""
+    b, valid, thr = nms_edge_case(n, kind)
+    tb, tv = torch.from_numpy(b)[None], torch.from_numpy(valid)[None]
+    words = nms_suppression_words(tb, thr)
+    assert words.shape == (1, n, -(-n // 64)) and words.dtype == torch.int64
+    bits = ((words[..., None] >> torch.arange(64)) & 1).flatten(-2).bool()  # [1, N, 64 G]
+    later = torch.ones(n, n, dtype=torch.bool).triu(1)
+    assert not bits[0, :, :n][~later].any() and not bits[..., n:].any()
+    want = nms_keep_mask_plain(tb, tv, thr)
+    np.testing.assert_array_equal(nms_sweep_words(words, tv).numpy(), want.numpy())
+    if kind == "all_disjoint":
+        assert bool(want.all())
+    if kind == "chain":
+        assert torch.equal(want[0], torch.arange(n) % 2 == 0)
+
+
 # ---------------------------------------------------------------- RoIAlign (K2)
 
 @pytest.mark.parametrize("c", [256, 512])
@@ -199,6 +238,63 @@ def test_roi_align_plain_reads_bf16_as_f32():
     bf = feats.to(torch.bfloat16)
     np.testing.assert_array_equal(roi_align_plain(bf, bx).numpy(),
                                   roi_align_plain(bf.float(), bx).numpy())
+
+
+# K2's design: the nonzero taps of each bin row, at most 4
+
+def _tap_boxes(kind):
+    rng = np.random.default_rng(21)
+    if kind == "roi_boxes":
+        return np.stack([roi_boxes(64, rng), roi_boxes(64, rng)])
+    return sweep_boxes(4096, rng).reshape(2, 2048, 4)
+
+
+@pytest.mark.parametrize("kind", ["roi_boxes", "sweep"])
+def test_roi_tap_tables_expand_to_dense(kind):
+    """The tables hold every nonzero cell of Ay and Ax, in ascending order,
+    with the dense weight's own value: scattered back they equal the dense
+    rows exactly."""
+    bx = torch.from_numpy(_tap_boxes(kind))
+    dense = roi_align_weights(bx, 16, 16, 8, 1.0 / 32.0, 2)
+    for (cells, weights, count), want in zip(roi_tap_tables(bx, 16, 16, 8, 1.0 / 32.0, 2),
+                                             dense):
+        assert cells.shape == weights.shape == want.shape[:-1] + (4,)
+        assert torch.equal(count, (want != 0).sum(-1))
+        got = torch.zeros_like(want).scatter_add_(-1, cells, weights)
+        assert torch.equal(got, want)
+        used = torch.arange(4) < count[..., None]
+        assert bool((weights[used] != 0).all()) and not weights[~used].any()
+        assert bool(((cells[..., 1:] > cells[..., :-1]) | ~used[..., 1:]).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_roi_tap_tables_at_most_four_taps(seed):
+    """Over negative, degenerate, out-of-map, sub-cell and wider-than-the-map
+    boxes no bin row has more than 4 nonzero cells; the sweep reaches 0
+    (bins off the map) and 4 (bins over two cells wide)."""
+    bx = torch.from_numpy(sweep_boxes(20000, np.random.default_rng(seed)))
+    counts = torch.cat([(w != 0).sum(-1).flatten()
+                        for w in roi_align_weights(bx, 16, 16, 8, 1.0 / 32.0, 2)])
+    assert int(counts.max()) == 4 and int(counts.min()) == 0
+
+
+@pytest.mark.parametrize("c", [128])
+def test_roi_align_taps_plain_matches_jax(c):
+    """Pooling over the tap tables, in the kernel's order, within the 1e-5
+    (abs and rel) of test_roi_align_plain_matches_jax: the same f32 weights
+    and products, summed in another order."""
+    rng = np.random.default_rng(c + 1)
+    feats = rng.normal(0, 1, (2, 16, 16, c)).astype(np.float32)
+    bx = np.stack([roi_edge_boxes(48, rng), np.concatenate([roi_boxes(40, rng),
+                                                            sweep_boxes(8, rng)])])
+    got = roi_align_taps_plain(torch.from_numpy(feats), torch.from_numpy(bx)).numpy()
+    assert got.shape == (2, 48, 8, 8, c) and got.dtype == np.float32
+    pallas = np.asarray(roi_align_pallas_batched(jnp.asarray(feats), jnp.asarray(bx),
+                                                 interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, roi_align_plain(torch.from_numpy(feats), torch.from_numpy(bx)).numpy(),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_roi_align_wrapper_checks():
