@@ -20,6 +20,9 @@ Phases (any failed check raises and the script exits non-zero):
      caches (max abs error <= 1e-5 f32, <= 1e-4 bf16/int8; bit-identical
      on a relaunch), timed cold (caches cycled past the L2 cache) and warm
      (one cache relaunched), each slot with its own bound;
+  5a. K3 at the evaluation path's long caches: 256 lanes (64 items x 4
+     beams) x 16 heads x 305 slots x 64 dims, slots 130 and 303 (K3's ten
+     chunks of 32 slots), bf16 and f32, as phase 5 holds and times it;
   6. K4 dense_wint8: kernel vs plain PyTorch at the decoder's four
      products (K, N) in {(1024, 3072), (1024, 1024), (1024, 4096),
      (4096, 1024)} at M = 64 and 256 rows, and one ragged shape (5, 96,
@@ -45,6 +48,12 @@ Phases (any failed check raises and the script exits non-zero):
      "pallas" on decoder weights snapped to their int8 grid; reports and
      detector decisions must be identical card vs CPU and across the
      three weights_int8 values;
+  7a. evaluation reference: evaluate_model on the small model over 2
+     batches of 2 images with decision margins, card vs CPU, greedy and
+     beam 4 (length buckets (6, 12); the beam run's CascadeStats bails out
+     after its first batch), with soft dedup ("auto" on each device) and a
+     random small CheXbert for CE: scores equal within 1e-5, sentences,
+     reports, CE labels and cascade counters identical;
   8. main path: a full-width ReportGenerator (ResNet-50, 1000 proposals,
      bf16 detector; GPT-2 Medium, 24 layers x 1024 wide x 16 heads, vocab
      50257, bf16) with seeded random weights answers 3 requests of 8 raw
@@ -74,7 +83,17 @@ Phases (any failed check raises and the script exits non-zero):
      region sentences; soft dedup only drops sentences), then serves 4
      batches through generate_reports_pipelined(weights_int8="pallas");
      ms per request and per batch beside exact dedup's, and the scorer's
-     calls, pairs and host ms.
+     calls, pairs and host ms;
+ 13. evaluation at full width: evaluate_model over 3 batches of 8 uint8
+     2048x2500 X-rays made from a seed, through the port's dataset (split
+     rows, val_transform, BPE encode of the phrases, collate, prefetch;
+     images held in memory), with the main path's weights, beam 4 with
+     early stopping at max_length 300 through the length cascade (64, 128,
+     304) and its bail-out, soft dedup on the card and CE through a
+     BERT-base-wide CheXbert (random weights); the K1/K2/K3 counters must
+     equal 1 and 4 per batch and 24 per beam step; ms per batch of detect,
+     decode, host metrics and CE, reports/s of decode, the cascade
+     snapshot, and one bailed-out batch profiled (device idle share).
 
 TF32 is off for the comparison phases. Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -112,6 +131,13 @@ K3_SHAPE = dict(items=96, beams=BEAMS, heads=16, slots=1 + MAX_LENGTH, dim=64)
 # the first, middle and last slot a max_length-60 beam decode attends to
 K3_SLOTS = (2, 31, 59)
 K3_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4}
+# the evaluation path's long caches: 64 items (the row budget of the ~60
+# regions a batch of 8 selects) x 4 beams at the length cascade's last rung
+# (304 slots + the image slot), K3's slots split over ten chunks of 32
+K3_LONG_SHAPE = dict(items=64, beams=BEAMS, heads=16, slots=305, dim=64)
+K3_LONG_SLOTS = (130, 303)
+EVAL_MAX_LENGTH = 300  # the evaluate CLI's default (beam 4, early stopping)
+EVAL_BATCHES = 3
 # K4 at the decoder's four products per layer (c_attn, attn c_proj, c_fc,
 # mlp c_proj of GPT-2 Medium) at the greedy row budget (64) and at 256 rows
 # (beam lanes), and one ragged shape that tiles nowhere
@@ -300,13 +326,13 @@ def phase_roi(np, torch, dev, result):
     result["roi_align"] = rows
 
 
-def k3_inputs(np, torch, dev, kind, slot, seed=2):
+def k3_inputs(np, torch, dev, kind, slot, seed=2, shape=K3_SHAPE):
     """Unit-scale q/k/v and an ancestry grown as beam search grows it up to
     `slot`: each step every beam picks a random parent beam of its item and
     owns the slot it writes (so beams share early history, as real ones
     do)."""
     from rgrg_tpu_torch.models.gpt2 import _quantize_kv
-    sh = K3_SHAPE
+    sh = shape
     rng = np.random.default_rng(seed)
     b, k, h, t, d = sh["items"], sh["beams"], sh["heads"], sh["slots"], sh["dim"]
     anc = np.broadcast_to(np.arange(k, dtype=np.int32)[None, :, None], (b, k, t)).copy()
@@ -327,22 +353,23 @@ def k3_inputs(np, torch, dev, kind, slot, seed=2):
     return q, kv[0], kv[1], torch.from_numpy(anc).to(dev), scales
 
 
-def phase_beam_attn(np, torch, dev, result):
+def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
+                    kinds=("bf16", "f32", "int8"), key="beam_attention"):
     """K3 against its plain version at the beam path's shape, at the first,
     middle and last slot of a max_length-60 decode, with f32, bf16 and int8
-    caches; bit-identical on a relaunch. Device time warm (one cache,
-    relaunched: its named rows stay in the L2 cache, as PR 2-4 timed it)
-    and cold (each launch reads another copy of the cache, cycling enough
-    copies that the rows they name fill twice the L2 cache, as the decode
-    step finds every layer's cache), beside the plain version and the
-    gather + SDPA yardstick."""
+    caches (or at `shape`, `slots` and `kinds`); bit-identical on a
+    relaunch. Device time warm (one cache, relaunched: its named rows stay
+    in the L2 cache) and cold (each launch reads
+    another copy of the cache, cycling enough copies that the rows they
+    name fill twice the L2 cache, as the decode step finds every layer's
+    cache), beside the plain version and the gather + SDPA yardstick."""
     from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain, plan
     from rgrg_tpu_torch.ops.kernels import sm_count
     rows = {}
-    scale = K3_SHAPE["dim"] ** -0.5
-    for slot in K3_SLOTS:
-        for kind in ("bf16", "f32", "int8"):
-            q, k, v, anc, scales = k3_inputs(np, torch, dev, kind, slot)
+    scale = shape["dim"] ** -0.5
+    for slot in slots:
+        for kind in kinds:
+            q, k, v, anc, scales = k3_inputs(np, torch, dev, kind, slot, shape=shape)
             got = beam_attention(q, k, v, anc, slot, scale=scale, **scales)
             want = beam_attention_plain(q, k, v, anc, slot, scale=scale, **scales)
             torch.cuda.synchronize()
@@ -392,7 +419,7 @@ def phase_beam_attn(np, torch, dev, result):
                 lib = gather_sdpa()[:, :, 0].float()
                 check((lib - want).abs().max().item() <= 2e-2, "gather+SDPA yardstick disagrees")
                 two_call_ms = cuda_ms(torch, gather_sdpa, 50)
-            p = plan(bk, K3_SHAPE["beams"], h, d, k.shape[2], k.dtype,
+            p = plan(bk, shape["beams"], h, d, k.shape[2], k.dtype,
                      sm_count(torch.cuda.current_device()))
             row = dict(slot=slot, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
                        two_call_ms=two_call_ms, max_abs_err=err,
@@ -411,7 +438,7 @@ def phase_beam_attn(np, torch, dev, result):
                 f"{t_ops * 1e3:.4f} ms); plan {tuple(p)} [{result['card']}]")
             del q, k, v, anc, scales, got, want
             torch.cuda.empty_cache()
-    result["beam_attention"] = rows
+    result[key] = rows
 
 
 def cycled(t):
@@ -1277,6 +1304,404 @@ def phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg):
         sentences_dropped=dropped, serving=serving)
 
 
+# ---------------------------------------------------------------- evaluation
+
+SYLLABLES = [c + v for c in "bcdfghklmnprstvz" for v in "aeiou"]
+
+
+def report_tokenizer(vocab_size, eos_id, byte_level=False, break_every=0):
+    """A GPT-2 tokenizer of `vocab_size` ids for random weights: EOS at
+    `eos_id`, report words (" lungs", ".") first, then pseudo-words of two
+    or three syllables, so any decode reads as words. byte_level adds the
+    byte alphabet and merges that build each report word, so that phrases
+    encode (the dataset's BPE encode) as GPT-2's vocabulary would.
+    break_every > 0 makes every such id a sentence break (". There"), so
+    that short decodes give reports of several sentences."""
+    from rgrg_tpu_torch.text.tokenizer import ENDOFTEXT, GPT2Tokenizer, _bytes_to_unicode
+    from tests.torch_parity import WORDS
+    tokens, merges = [], []
+    if byte_level:
+        tokens += sorted(set(_bytes_to_unicode().values()))
+        for w in WORDS:
+            piece = "" if w == "." else "Ġ"
+            for ch in w:
+                if piece:
+                    merges.append((piece, ch))
+                piece += ch
+                tokens.append(piece)
+    tokens += ["." if w == "." else "Ġ" + w for w in WORDS]
+    vocab = dict.fromkeys(tokens)
+    for a, b, c in itertools.product(SYLLABLES, SYLLABLES, [""] + SYLLABLES):
+        if len(vocab) >= vocab_size - 1:
+            break
+        vocab.setdefault("Ġ" + a + b + c)
+    ordered = list(vocab)[:vocab_size - 1]
+    if break_every:
+        ordered = [f".ĠThere{'Ġ' * i}" if i and i % break_every == 0 else t
+                   for i, t in enumerate(ordered)]
+    ordered.insert(eos_id, ENDOFTEXT)
+    return GPT2Tokenizer({t: i for i, t in enumerate(ordered)}, list(dict.fromkeys(merges)))
+
+
+def write_chexbert_vocab(path):
+    """A WordPiece vocabulary for the smoke's CheXbert: specials, the
+    report words, the pseudo-words' syllables with their "##" pieces,
+    letters, digits and punctuation."""
+    from tests.torch_parity import WORDS
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + list("0123456789")
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + sorted({w.lower() for w in WORDS if w != "."}) + SYLLABLES
+             + ["##" + s for s in SYLLABLES] + chars + ["##" + c for c in chars]
+             + list(".,;:!?'\"()-/"))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(dict.fromkeys(vocab)) + "\n")
+    return path
+
+
+def chexbert_labeler(torch, cfg, vocab_path, device, seed):
+    """The evaluate CLI's labeler (reports -> [14, N] labels) over a
+    CheXbert of `cfg`'s widths with seeded random weights (N(0, 0.02) as
+    BERT initialises, heads N(0, 1) so that their argmax is decisive),
+    converted by convert_chexbert; the labeler's .logits(reports) gives the
+    14 heads' logits."""
+    from rgrg_tpu_torch.eval.chexbert import chexbert_logits, convert_chexbert
+    from rgrg_tpu_torch.evaluate import chexbert_labeler as cli_labeler
+    from rgrg_tpu_torch.text.wordpiece import WordPieceTokenizer
+    g = torch.Generator().manual_seed(seed)
+    h, inter = cfg.hidden, cfg.intermediate
+
+    def rand(*shape, std=0.02):
+        return torch.randn(shape, generator=g) * std
+
+    e = "bert.embeddings"
+    sd = {f"{e}.word_embeddings.weight": rand(cfg.vocab_size, h),
+          f"{e}.position_embeddings.weight": rand(cfg.max_positions, h),
+          f"{e}.token_type_embeddings.weight": rand(cfg.type_vocab, h),
+          f"{e}.LayerNorm.weight": torch.ones(h), f"{e}.LayerNorm.bias": torch.zeros(h)}
+    for i in range(cfg.layers):
+        p = f"bert.encoder.layer.{i}"
+        for name, (o, n) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (inter, h)), ("output.dense", (h, inter))):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = rand(o, n), torch.zeros(o)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(h), torch.zeros(h)
+    for j in range(14):
+        n = 2 if j == 13 else 4
+        sd[f"linear_heads.{j}.weight"] = rand(n, h, std=1.0)
+        sd[f"linear_heads.{j}.bias"] = rand(n, std=0.5)
+    params = convert_chexbert(sd, device=device)
+    label = cli_labeler(params, vocab_path, cfg)
+    wp = WordPieceTokenizer.from_vocab_file(vocab_path)
+
+    def logits(reports):
+        ids, mask = wp.encode_batch(list(reports))
+        with torch.inference_mode():
+            return [x.cpu() for x in chexbert_logits(
+                params, torch.tensor(ids, device=device),
+                torch.tensor(mask, dtype=torch.float32, device=device), cfg)]
+    label.logits = logits
+    return label
+
+
+def same_scores(got, want, what, tol=1e-5, path="scores"):
+    """Scores dicts equal: strings, decisions and counts exactly, floats
+    within `tol`."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(), f"{what}: keys of {path}")
+        for k in want:
+            same_scores(got[k], want[k], what, tol, f"{path}.{k}")
+    elif isinstance(want, float):
+        check(isinstance(got, float) and abs(got - want) <= tol,
+              f"{what}: {path} {got} != {want}")
+    else:
+        check(got == want, f"{what}: {path} {got!r} != {want!r}")
+
+
+def phase_eval_reference(np, torch, dev, result):
+    """evaluate_model on the small model, card (K1-K3) vs CPU (plain
+    versions), greedy and beam 4 with early stopping, at max_length 12 over
+    length buckets (6, 12) (the beam run with a CascadeStats that bails out
+    after its first batch), with soft dedup (the default scorer of phase
+    6a, "auto" on each device) and a random small CheXbert on each device.
+    The scores must be equal: sentences, reports and CE labels identical,
+    floats within 1e-5; language_generation's cascade counters too. The
+    comparison is meaningful only where every decision has a margin: the
+    images are picked for it, and the CPU run's soft-dedup F1s and
+    CheXbert logits are checked for one."""
+    from rgrg_tpu_torch.eval import bertscore as bs
+    from rgrg_tpu_torch.eval.chexbert import BertConfig
+    from rgrg_tpu_torch.eval.evaluator import evaluate_model
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.serving import CascadeStats
+    from tests.torch_parity import eval_batches, image_with_margins
+
+    max_length, rungs, min_gap = 12, (6, 12), 1e-4
+    cfg = small_config(length_buckets=rungs[:1])
+    g_cpu, g_gpu = small_generators(torch, dev, cfg)
+    with torch.no_grad():  # select most detected regions, so that reports are long
+        for g in (g_cpu, g_gpu):
+            g.params["detector"].selection_classifier.fc2.bias += 3.0
+    tok = report_tokenizer(cfg.decoder.vocab_size, cfg.decoder.eos_token_id, break_every=6)
+    images = [image_with_margins(g_cpu.params, cfg, slot, max_length, rungs, min_gap, BEAMS)
+              for slot in range(4)]
+    batches = eval_batches([np.concatenate(images[i:i + 2]) for i in (0, 2)], seed=5)
+    bert_cfg = BertConfig(vocab_size=400, hidden=64, layers=2, heads=4, intermediate=128)
+    vocab = write_chexbert_vocab(os.path.join(ROOT, "build", "smoke_chexbert", "vocab.txt"))
+    labelers = {d: chexbert_labeler(torch, bert_cfg, vocab, d, seed=21) for d in ("cpu", dev)}
+    cpu_scorer = bs.default_scorer(device="cpu")
+    check(cpu_scorer is not None, "no soft-dedup scorer: $RGRG_DISTILBERT_DIR is unset")
+    f1s = []
+
+    def recorded(pairs):
+        out = cpu_scorer(pairs)
+        f1s.extend(out)
+        return out
+
+    runs = {}
+    for name, beams in (("greedy", 1), ("beam4", BEAMS)):
+        for where, g, sim in (("cpu", g_cpu, recorded), ("card", g_gpu, "auto")):
+            stats = CascadeStats(threshold=1.1, min_rows=1) if beams > 1 else "auto"
+            nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+            t0 = time.perf_counter()
+            scores = evaluate_model(RGRG(cfg), g.params, batches, tok, num_beams=beams,
+                                    max_length=max_length, similarity_fn=sim,
+                                    chexbert=labelers["cpu" if where == "cpu" else dev],
+                                    cascade_stats=stats)
+            runs[name, where] = (scores, (time.perf_counter() - t0) * 1e3)
+            counts = (nms_keep_mask.launches, roi_align.launches, beam_attention.launches)
+            # the card's scores came through K1-K3 (K3: beam decodes only);
+            # the CPU's through their plain versions
+            want_launched = ((True, True, beams > 1) if where == "card"
+                             else (False, False, False))
+            check(tuple(n > 0 for n in counts) == want_launched,
+                  f"eval reference {name} on {where}: launches (K1, K2, K3) {counts}")
+        want, got = runs[name, "cpu"][0], runs[name, "card"][0]
+        lg, jlg = got.pop("language_generation"), want.pop("language_generation")
+        check(lg.keys() == jlg.keys() and lg["cascade"] == jlg["cascade"]
+              and lg["language_images"] == jlg["language_images"],
+              f"eval reference {name}: language_generation {lg} vs {jlg}")
+        same_scores(got, want, f"eval reference {name}, card vs CPU")
+        check(lg["cascade"]["rows_entering_rung"].get(max_length, 0) > 0,
+              f"eval reference {name}: the cascade did not reach its second rung")
+        check("CE" in want.get("report", {}) and want["sentence"]["meteor"] >= 0,
+              f"eval reference {name}: no CE or sentence scores")
+        log(f"eval reference {name}: 2 batches of 2 images, card == CPU (detector, selection, "
+            f"abnormal, {len(want['sentence']['per_region_meteor'])} regions' sentence "
+            f"METEOR, report NLG and CE within 1e-5); cascade {lg['cascade']}; "
+            f"card {runs[name, 'card'][1]:.0f} ms, CPU {runs[name, 'cpu'][1]:.0f} ms "
+            f"[{result['card']}]")
+    f1_gap = min((abs(f - bs.BERTSCORE_SIMILARITY_THRESHOLD) for f in f1s), default=1.0)
+    reports = [r for b in batches for r in b["reference_reports"]]
+    logits = labelers["cpu"].logits(reports)
+    head_gap = min(float((x.topk(2).values[:, 0] - x.topk(2).values[:, 1]).min())
+                   for x in logits)
+    check(f1_gap >= min_gap and head_gap >= min_gap,
+          f"eval reference: a soft-dedup F1 ({f1_gap:.2e} from 0.9) or a CheXbert head "
+          f"({head_gap:.2e}) sits on a near-tie")
+    log(f"eval reference: {len(f1s)} soft-dedup F1s, least distance to 0.9 {f1_gap:.3e}; "
+        f"CheXbert heads' least top-2 gap on the reference reports {head_gap:.3e}")
+    result["eval_reference"] = {f"{n} {w}_ms": ms for (n, w), (_, ms) in runs.items()}
+
+
+class TimedModel:
+    """An RGRG whose detect and decode_selected_cascade are timed on the
+    host clock around synchronized work (what evaluate_model calls); the
+    rest is the model's."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.ms = {"detect": [], "decode": []}
+
+    def _timed(self, key, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.ms[key].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def detect(self, *args, **kw):
+        return self._timed("detect", self.model.detect, *args, **kw)
+
+    def decode_selected_cascade(self, *args, **kw):
+        return self._timed("decode", self.model.decode_selected_cascade, *args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def timed_calls(fn, sink):
+    """fn, with each call's host ms appended to `sink`."""
+    def call(*args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        sink.append((time.perf_counter() - t) * 1e3)
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def images_in_memory(arrays):
+    """data/transforms.load_image reads "mem://<i>" as arrays[i] inside the
+    block (the card's machine has no cv2 to write or read image files), so
+    the dataset's row_to_sample runs as it does on files."""
+    from rgrg_tpu_torch.data import transforms
+    original = transforms.load_image
+    transforms.load_image = lambda path: arrays[int(path[len("mem://"):])]
+    try:
+        yield
+    finally:
+        transforms.load_image = original
+
+
+def eval_rows(np, n, raw_shape, seed):
+    """`n` split rows in the ETL's schema (read_split_csv's dicts) over
+    seeded uint8 X-rays kept in memory: 20-29 gt boxes of random sizes,
+    phrases of report words for ~60% of them, the reference report."""
+    rng = np.random.default_rng(seed)
+    from tests.torch_parity import WORDS
+    words = [w.lower() for w in WORDS if w != "."]
+    arrays, rows = [], []
+    h, w = raw_shape
+    for i in range(n):
+        arrays.append(rng.integers(0, 256, raw_shape, dtype=np.uint8))
+        labels = sorted(rng.choice(np.arange(1, 30), int(rng.integers(20, 30)),
+                                   replace=False).tolist())
+        xy = rng.uniform(0, [w * 0.8, h * 0.8], (len(labels), 2))
+        wh = rng.uniform(40, [w * 0.4, h * 0.4], (len(labels), 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, [w, h])], -1).round(1)
+        phrases = [" ".join(rng.choice(words, rng.integers(3, 9))).capitalize() + "."
+                   if rng.uniform() < 0.6 else "" for _ in range(29)]
+        rows.append({"mimic_image_file_path": f"mem://{i}",
+                     "bbox_coordinates": boxes.tolist(), "bbox_labels": labels,
+                     "bbox_phrases": phrases,
+                     "bbox_phrase_exists": [bool(p) for p in phrases],
+                     "bbox_is_abnormal": [bool(rng.uniform() < 0.3) for _ in phrases],
+                     "reference_report": " ".join(p for p in phrases if p)})
+    return arrays, rows
+
+
+def phase_eval_full_width(np, torch, dev, result, gen, cfg):
+    """evaluate_model at full width, as the evaluate CLI runs it: the main
+    path's weights (ResNet-50 bf16 detector, GPT-2 Medium), beam 4 with
+    early stopping at max_length 300 through the length cascade (64, 128,
+    304 with CascadeStats' bail-out), soft dedup through the default scorer
+    on the card, and CE through a CheXbert at BERT-base width (768 x 12
+    layers, random weights). The batches come through the port's dataset:
+    split rows over EVAL_BATCHES x BATCH uint8 2048x2500 X-rays, the eval
+    transform, the phrases' BPE encode and the collate, prefetched on a
+    thread. The K1/K2/K3 counters must move. Random weights never emit EOS,
+    so every selected row decodes to the cap: the worst case."""
+    from rgrg_tpu_torch.data.dataset import RGRGDataset
+    from rgrg_tpu_torch.data.prefetch import prefetched
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.eval.bertscore import default_scorer
+    from rgrg_tpu_torch.eval.chexbert import BertConfig
+    from rgrg_tpu_torch.eval.evaluator import evaluate_model
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.serving import CascadeStats
+
+    tok = report_tokenizer(cfg.decoder.vocab_size, cfg.decoder.eos_token_id, byte_level=True)
+    arrays, rows = eval_rows(np, EVAL_BATCHES * BATCH, RAW_SHAPE, seed=17)
+    bert_cfg = BertConfig()
+    vocab = write_chexbert_vocab(os.path.join(ROOT, "build", "smoke_chexbert", "vocab.txt"))
+    labeler = chexbert_labeler(torch, bert_cfg, vocab, dev, seed=23)
+    check(labeler.logits(["No pleural effusion."])[0].shape == (1, 4), "CheXbert heads")
+    timing = {"ce": [], "soft_dedup": []}
+    scorer = default_scorer(device=dev)
+    check(scorer is not None and scorer.device.type == dev.type, "soft-dedup scorer off the card")
+    model = TimedModel(torch, gen.model)
+    ds = RGRGDataset(rows, tok)
+    chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
+    with images_in_memory(arrays):
+        t_data = time.perf_counter()
+        first = next(ds.batches(BATCH))
+        data_ms = (time.perf_counter() - t_data) * 1e3
+        check(first["images"].shape == (BATCH, 512, 512, 1)
+              and first["input_ids"].shape == (BATCH, 29, 64)
+              and (first["input_ids"][first["region_has_sentence"]][:, 0]
+                   == cfg.decoder.bos_token_id).all(), "dataset batch")
+        nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+        beam_generate.steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = evaluate_model(model, gen.params, prefetched(ds.batches(BATCH, workers=2)),
+                                tok, num_beams=BEAMS, max_length=EVAL_MAX_LENGTH,
+                                early_stopping=True,
+                                similarity_fn=timed_calls(scorer, timing["soft_dedup"]),
+                                chexbert=timed_calls(labeler, timing["ce"]))
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+              "beam_attention": beam_attention.launches, "beam_steps": beam_generate.steps}
+    n_batches = len(model.ms["detect"])
+    check(n_batches == EVAL_BATCHES, f"full-width eval: {n_batches} batches")
+    check(counts["nms"] == n_batches and counts["roi_align"] == n_batches * chunks
+          and counts["beam_steps"] > 0
+          and counts["beam_attention"] == cfg.decoder.num_layers * counts["beam_steps"],
+          f"full-width eval: launches {counts}")
+    lg = scores["language_generation"]
+    rep, sent = scores.get("report", {}), scores.get("sentence", {})
+    check(lg["language_images"] == n_batches * BATCH and "CE" in rep and "meteor" in rep
+          and "meteor" in sent and all(np.isfinite(v) for v in
+                                       (rep["bleu_4"], rep["cider"], sent["meteor"])),
+          "full-width eval: scores missing or not finite")
+    check(all(isinstance(v, float) and 0 <= v <= 1 for v in
+              scores["object_detector"]["per_region_iou"].values()), "full-width eval: IoU")
+    decode_s = sum(model.ms["decode"]) / 1e3
+    loop_ms = lg["loop_seconds"] * 1e3
+    ce_ms = sum(timing["ce"])
+    metrics_ms = total_ms - loop_ms - ce_ms  # sentence + report NLG after the loop
+    per_batch = {"detect_ms": model.ms["detect"], "decode_ms": model.ms["decode"],
+                 "soft_dedup_ms": sum(timing["soft_dedup"]) / n_batches,
+                 "loop_ms_per_batch": loop_ms / n_batches,
+                 "host_metrics_ms_per_batch": metrics_ms / n_batches,
+                 "ce_ms_per_batch": ce_ms / n_batches}
+    log(f"eval full width: {n_batches} batches of {BATCH} uint8 {RAW_SHAPE} through the "
+        f"dataset (first batch built in {data_ms:.0f} ms), beam {BEAMS} max_length "
+        f"{EVAL_MAX_LENGTH}; detect ms per batch {['%.1f' % t for t in model.ms['detect']]}, "
+        f"decode ms per batch {['%.0f' % t for t in model.ms['decode']]} "
+        f"({counts['beam_steps']} beam steps), {n_batches * BATCH / decode_s:.2f} reports/s "
+        f"of decode; soft dedup {per_batch['soft_dedup_ms']:.0f} ms per batch "
+        f"({len(timing['soft_dedup'])} scorer calls); host metrics (sentence METEOR with the "
+        f"per-image mismatch pairs, report BLEU/METEOR/ROUGE/CIDEr) "
+        f"{per_batch['host_metrics_ms_per_batch']:.0f} ms per batch; CE "
+        f"{per_batch['ce_ms_per_batch']:.0f} ms per batch ({len(timing['ce'])} calls); "
+        f"whole evaluate_model {total_ms:.0f} ms [{result['card']}]. Random weights never "
+        f"emit EOS: every selected row decodes to the cap (the worst case)")
+    log(f"eval full width: cascade {lg['cascade']}; bailed out {lg['cascade']['bailed_out']}; "
+        f"reports/s of decode (evaluate_model's) {lg['reports_per_sec_decode']}; launches "
+        f"{counts}; scores: IoU {scores['object_detector']['avg_iou']:.4f}, sentence METEOR "
+        f"{sent['meteor']:.4f}, report BLEU-4 {rep['bleu_4']:.4f} CIDEr {rep['cider']:.4f}, "
+        f"CE F1 micro-5 {rep['CE']['f1_micro_5']:.4f}")
+    # the device's idle share over one batch, decoded at max_length as the
+    # bailed-out cascade decodes it: timed alone, then profiled
+    with images_in_memory(arrays):
+        batch = next(ds.batches(BATCH))
+
+    def one_batch():
+        stats = CascadeStats()
+        stats.bailed_out = True
+        return evaluate_model(gen.model, gen.params, [batch], tok, num_beams=BEAMS,
+                              max_length=EVAL_MAX_LENGTH, similarity_fn=scorer,
+                              chexbert=labeler, cascade_stats=stats)
+    _, one_ms = timed(torch, one_batch, reps=1)
+    prof = profiled(torch, one_batch, one_ms, "eval full width, one batch", "batch")
+    result["eval_full_width"] = dict(per_batch=per_batch, total_ms=total_ms, one_batch_ms=one_ms,
+                                     data_first_batch_ms=data_ms, launches=counts,
+                                     language_generation=lg,
+                                     reports_per_s_decode=n_batches * BATCH / decode_s,
+                                     profile=prof)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1315,16 +1740,20 @@ def main() -> int:
     phase_nms(np, torch, dev, result)
     phase_roi(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result)
+    phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_LONG_SLOTS,
+                    kinds=("bf16", "f32"), key="beam_attention_long")
     phase_dense_wint8(np, torch, dev, result)
     distilbert = phase_soft_dedup(np, torch, dev, result)
     with distilbert_dir(distilbert):
         phase_reference(np, torch, dev)
+        phase_eval_reference(np, torch, dev, result)
     phase_reference_serving(np, torch, dev)
     cfg = full_width_config()
     launches, gen = phase_main(np, torch, dev, result, cfg)
     k4_launches = phase_serving(np, torch, dev, result, gen, cfg)
     with distilbert_dir(distilbert):
         phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
+        phase_eval_full_width(np, torch, dev, result, gen, cfg)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]

@@ -32,6 +32,7 @@ from rgrg_tpu_torch.core import constants as C
 from rgrg_tpu_torch.core.config import ModelConfig
 from rgrg_tpu_torch.core.device import DeviceLike
 from rgrg_tpu_torch.data.preprocess import preprocess_batch
+from rgrg_tpu_torch.data.transforms import load_image
 from rgrg_tpu_torch.models.full_model import RGRG, Params
 from rgrg_tpu_torch.ops.resize import resize_matrices
 from rgrg_tpu_torch.text.report import SimilarityFn, assemble_report
@@ -47,17 +48,6 @@ class GeneratedReport:
     selected_regions: np.ndarray              # [29] bool
     class_detected: np.ndarray                # [29] bool
     top_region_boxes: np.ndarray              # [29, 4]
-
-
-def load_image(path: str) -> np.ndarray:
-    """Single-channel read of an image file (cv2, imported only here)."""
-    import cv2
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
-    if img.ndim == 3:
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
-    return img
 
 
 class ReportGenerator:

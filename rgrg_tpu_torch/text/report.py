@@ -115,11 +115,16 @@ SimilarityFn = Callable[[List[Tuple[str, str]]], List[float]]
 
 def remove_duplicate_sentences(sentences: Sequence[str],
                                similarity_fn: Optional[SimilarityFn] = None,
-                               threshold: float = 0.9) -> List[str]:
-    """Exact + soft dedup with the reference's removal-loop semantics."""
+                               threshold: float = 0.9,
+                               return_removed: bool = False):
+    """Exact + soft dedup with the reference's removal-loop semantics.
+
+    return_removed=True additionally returns {kept_sentence: [removed
+    similar sentences]}, the reference's removed_similar_generated_sentences
+    artifact (generate_reports_for_images.py:60-96)."""
     sents = list(dict.fromkeys(sentences))  # ordered exact dedup
     if similarity_fn is None or len(sents) < 2:
-        return sents
+        return (sents, {}) if return_removed else sents
 
     pairs = [(sents[i], sents[j])
              for i in range(len(sents)) for j in range(i + 1, len(sents))]
@@ -153,13 +158,16 @@ def remove_duplicate_sentences(sentences: Sequence[str],
                     removed[s2].append(s1)
 
     kept = [s for s in sents if not is_removed(s)]
-    return kept
+    return (kept, dict(removed)) if return_removed else kept
 
 
 def assemble_report(region_sentences: Sequence[str],
                     similarity_fn: Optional[SimilarityFn] = None,
-                    threshold: float = 0.9) -> str:
-    """Per-region generated sentences -> deduplicated report string."""
+                    threshold: float = 0.9,
+                    return_removed: bool = False):
+    """Per-region generated sentences -> deduplicated report string, and
+    with return_removed the removal map of remove_duplicate_sentences."""
     joined = " ".join(s for s in region_sentences if s)
-    return " ".join(remove_duplicate_sentences(split_sentences(joined),
-                                               similarity_fn, threshold))
+    kept, removed = remove_duplicate_sentences(split_sentences(joined), similarity_fn,
+                                               threshold, return_removed=True)
+    return (" ".join(kept), removed) if return_removed else " ".join(kept)

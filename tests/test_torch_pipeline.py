@@ -220,13 +220,21 @@ def test_mixed_shapes_rejected(setup):
     assert tuple(wy.shape) == (512, 64) and tuple(wx.shape) == (64, 512)
 
 
-def _imports(path):
+def _imports(path, in_functions=True):
+    """Top-level names of the modules `path` imports (absolute imports);
+    with in_functions=False only those imported outside function bodies."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module
+            if in_functions or not isinstance(child, (ast.FunctionDef,
+                                                      ast.AsyncFunctionDef, ast.Lambda)):
+                yield from walk(child)
+    yield from walk(tree)
 
 
 @pytest.mark.parametrize("target", ["rgrg_tpu_torch", "chip_smoke.py",
@@ -243,3 +251,37 @@ def test_port_imports_no_jax(target):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "rgrg_tpu",
                                "transformers"), (f, mod)
+
+
+# packages the card's machine does not have: the evaluation path carries
+# its own copies (pandas -> csv, nltk -> eval/porter.py, regex -> the
+# tokenizer's scanner, sklearn -> numpy, transformers -> own converters)
+ABSENT_ON_THE_CARD = ("pandas", "nltk", "regex", "transformers", "sklearn")
+# present here, absent on the card, and imported only where a function needs
+# them (reading image files, drawing figures)
+IN_FUNCTIONS_ONLY = ("cv2", "matplotlib")
+
+
+@pytest.mark.parametrize("target", ["rgrg_tpu_torch", "chip_smoke.py",
+                                    "tests/torch_parity.py"])
+def test_port_imports_run_on_the_card(target):
+    """No module of the port imports a package the card's machine lacks,
+    and cv2 and matplotlib only inside function bodies, so every module
+    imports there (an AST scan)."""
+    path = ROOT / target
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files
+    for f in files:
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in ABSENT_ON_THE_CARD, (f, mod)
+        for mod in _imports(f, in_functions=False):
+            assert mod.split(".")[0] not in IN_FUNCTIONS_ONLY, (f, mod)
+
+
+def test_import_scan_sees_what_it_guards(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\nfrom nltk.stem import porter\n"
+                   "def f():\n    import cv2\n    from matplotlib import pyplot\n"
+                   "class K:\n    import regex\n")
+    assert sorted(_imports(src)) == ["cv2", "matplotlib", "nltk.stem", "os", "regex"]
+    assert sorted(_imports(src, in_functions=False)) == ["nltk.stem", "os", "regex"]

@@ -5,15 +5,18 @@ implementations of the same f32 math (another library, another device)
 disagree by ~3e-6, so a discrete decision on such a tie may go either way.
 Parity checks therefore run on the first seeded input whose every decision
 clears that noise by ~10x (beam search: every score comparison it makes,
-`beam_score_margin`). Used by tests/test_torch_{detector,pipeline,beam}.py
-and by chip_smoke.py's card-vs-CPU reference phase; imports only torch and
-rgrg_tpu_torch.
+`beam_score_margin`; a whole evaluation input: `image_with_margins`).
+Used by tests/test_torch_{detector,pipeline,beam,evaluator}.py and by
+chip_smoke.py's card-vs-CPU reference phases, which also share the
+evaluation batches built here (`WORDS`, `eval_batches`); imports only
+numpy, torch and rgrg_tpu_torch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from rgrg_tpu_torch.core.config import DecoderConfig
@@ -144,3 +147,75 @@ def beam_score_margin(params: Dict[str, Any], image_features: torch.Tensor,
         s = sorted(pooled[i], reverse=True)
         gaps += [x - y for x, y in zip(s, s[1:])]
     return min(gaps)
+
+
+# ---------------------------------------------------------------- evaluation
+
+# report words: the small tokenizers of the evaluation checks give id i + 1
+# to " " + WORDS[i] ("." without the space), and reference phrases use them
+WORDS = ["the", "lungs", "are", "clear", "heart", "size", "is", "normal", "no",
+         "pleural", "effusion", "pneumothorax", "There", "mild", "cardiomegaly", "left",
+         "right", "lower", "upper", "lobe", "opacity", "atelectasis", "unchanged",
+         "stable", "mediastinal", "contours", "within", "limits", "small", "bilateral",
+         "effusions", "focal", "consolidation", "seen", "not", "acute", "process",
+         "osseous", "structures", "intact", "silhouette", "enlarged", "hilar", "lung",
+         "volumes", "low", "apical", "zone", "."]
+
+
+def image_with_margins(params: Dict[str, Any], cfg, slot: int, max_length: int,
+                       rungs: Sequence[int], min_gap: float, num_beams: int = 4,
+                       seeds: int = 64) -> np.ndarray:
+    """The first seeded normalised uint8-like 512x512 image [1, 512, 512, 1]
+    (as the eval transform normalises) whose detector decisions, and greedy
+    (at max_length) and beam (at each rung's length) decisions on its
+    selected regions, clear two implementations' f32 disagreement by
+    `min_gap`. Decisions are per image and per row, so images picked one
+    by one keep their margins in a batch."""
+    from rgrg_tpu_torch.models.full_model import RGRG
+    model = RGRG(cfg)
+    for seed in range(seeds):
+        pixels = np.random.default_rng([slot, seed]).integers(0, 256, (1, 512, 512, 1))
+        image = ((pixels - 0.471 * 255) / (0.302 * 255)).astype(np.float32)
+        x = torch.from_numpy(image)
+        if not has_parity_margins(params["detector"], x):
+            continue
+        det = model.detect(params, x)
+        feats = det["region_features"][det["selected_regions"]]
+        if (feats.shape[0]
+                and greedy_logit_margin(params["decoder"], feats, cfg.decoder,
+                                        max_length) >= min_gap
+                and all(beam_score_margin(params["decoder"], feats, cfg.decoder, n,
+                                          num_beams, True) >= min_gap for n in rungs)):
+            return image
+    raise AssertionError(f"no seeded evaluation image with decision margins (slot {slot})")
+
+
+def eval_batches(images: Sequence[np.ndarray], seed: int = 0) -> List[Dict[str, Any]]:
+    """One evaluation batch dict per normalised image array [B, 512, 512, 1],
+    built with numpy: gt boxes of up to a third of the image, gt-present
+    (90%) and abnormal (30%) flags, reference phrases of WORDS for ~60% of
+    the regions, and the reports they join into."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for image in images:
+        b = image.shape[0]
+        has_sent = rng.uniform(size=(b, 29)) < 0.6
+        phrases = [[" ".join(rng.choice(WORDS[:-1], rng.integers(2, 7))).capitalize() + "."
+                    if has_sent[i, r] else "" for r in range(29)] for i in range(b)]
+        boxes = []
+        for _ in range(b):
+            x1, y1 = rng.uniform(0, 511, 29), rng.uniform(0, 511, 29)
+            w, h = rng.uniform(1, 512 / 3, 29), rng.uniform(1, 512 / 3, 29)
+            boxes.append(np.stack([x1, y1, np.minimum(x1 + w, 512), np.minimum(y1 + h, 512)],
+                                  axis=1).astype(np.float32))
+        batches.append({
+            "images": image,
+            "gt_boxes": np.stack(boxes),
+            "gt_labels": np.tile(np.arange(1, 30, dtype=np.int32), (b, 1)),
+            "gt_valid": rng.uniform(size=(b, 29)) < 0.9,
+            "region_has_sentence": has_sent,
+            "region_is_abnormal": rng.uniform(size=(b, 29)) < 0.3,
+            "reference_phrases": phrases,
+            "reference_reports": [" ".join(p for p in row if p) for row in phrases],
+        })
+    return batches
