@@ -95,7 +95,25 @@ Phases (any failed check raises and the script exits non-zero):
      decode, host metrics and CE, reports/s of decode, the cascade
      snapshot, and one bailed-out batch profiled (device idle share).
 
-TF32 is off for the comparison phases. Output: progress lines, then a JSON
+ 14. training (train.loop.train, `phase_train_*`): (a) K1 at B=16 x
+     N=2000 (the training proposal count) and N=1000, masks bit-identical
+     to plain; (b) K2 at B=16 x 256 RoIs x C=2048, bf16 and f32, forward
+     within 1e-4 of plain and the feature gradient through its
+     autograd.Function against autograd through the plain version (f32
+     1e-4 relative, bf16 one bf16 ulp), bit-identical on a relaunch, with
+     the backward product's time beside `torch.bmm` alone; (c) the small
+     model's stage-3 step card vs CPU from the same weights, batch and
+     sampling keys, then a 4-mini-step update; (d) full width at
+     RGRGConfig() defaults (ResNet-50, 2000 proposals, 512 sampled RoIs,
+     GPT-2 Medium, batch 16, accumulation 4, f32): 8 mini-steps with
+     checkpoints, a resume for 4 more, 4 of stage 1 and 4 of the bf16 /
+     remat recipe (budget 256), each with ms per mini-step and update,
+     images/s, LM target tokens/s, peak memory, K1 / K2 launches (1 and 2
+     a mini-step) and finite losses; one mini-step of each recipe
+     profiled; the FLOP of a mini-step counted from the shapes and its
+     share of the f32 peak.
+
+TF32 is off for the whole run (the f32 training numbers are without it). Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Full numbers also go to
 chiprun_out/chip_smoke.json.
@@ -1702,6 +1720,598 @@ def phase_eval_full_width(np, torch, dev, result, gen, cfg):
                                      profile=prof)
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_BATCH = 16        # RGRGConfig().train.batch_size
+TRAIN_SEQ = 64          # tokens per region sentence
+TRAIN_LM_BUDGET = 128   # train.loop.train's default LM row budget
+TRAIN_ROIS = 256        # RoI chunk (cfg.roi.proposal_chunk): one K2 launch
+
+
+def phase_train_kernels(np, torch, dev, result):
+    """(a) K1 at the training proposal count (B=16 x N=2000) and the
+    validation count (N=1000), masks bit-identical to the plain version;
+    (b) K2 at the training shape (B=16, 256 RoIs, C=2048) forward within
+    1e-4 of plain, and its feature gradient (the autograd.Function's
+    backward, one batched matmul) against autograd through the plain
+    version: f32 within 1e-4 relative, bf16 within one bf16 ulp (8e-3
+    relative), bit-identical on a relaunch. Times the forward, the backward
+    product and `torch.bmm` alone on the same W2 and gradient (the library
+    call the backward is)."""
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+    from rgrg_tpu_torch.ops.roi_align import (roi_align, roi_align_feature_grad,
+                                              roi_align_plain, roi_align_weights)
+    rows = {}
+    for n in (2000, 1000):
+        boxes, valid = nms_inputs(np, torch, dev, b=TRAIN_BATCH, n=n, seed=3)
+        got = nms_keep_mask(boxes, valid, 0.7)
+        torch.cuda.synchronize()
+        check(torch.equal(got, nms_keep_mask_plain(boxes, valid, 0.7)),
+              f"NMS kernel mask != plain mask at B={TRAIN_BATCH} N={n}")
+        ms = cuda_ms(torch, lambda: nms_keep_mask(boxes, valid, 0.7), 50)
+        plain_ms = cuda_ms(torch, lambda: nms_keep_mask_plain(boxes, valid, 0.7), 2, warmup=1)
+        keep = got.cpu().numpy()
+        pairs = nms_pairs_needed(np, boxes.cpu().numpy(), valid.cpu().numpy(), keep, 0.7)
+        nbytes, flops = TRAIN_BATCH * n * 18, 16 * pairs
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o) * 1e3,
+                   bound_by="bytes" if t_b >= t_o else "operations", pairs=pairs,
+                   kept=int(keep.sum()), max_abs_err=0.0)
+        rows[f"N={n}"] = row
+        log(f"K1 nms training shape: B={TRAIN_BATCH} N={n} kept={row['kept']} mask identical, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}: {pairs} IoU tests) [{result['card']}]")
+    result["nms_train"] = rows
+
+    k2 = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        feats, boxes = roi_inputs(np, torch, dev, dtype, b=TRAIN_BATCH, n=TRAIN_ROIS, seed=4)
+        out = roi_align(feats, boxes)
+        want = roi_align_plain(feats, boxes)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        check(err <= 1e-4, f"K2 training shape {name}: forward max abs err {err}")
+        del out, want
+        g = torch.randn((TRAIN_BATCH, TRAIN_ROIS, 8, 8, feats.shape[-1]), generator=gen,
+                        device=dev)
+        f = feats.clone().requires_grad_(True)
+        (grad,) = torch.autograd.grad(roi_align(f, boxes), f, g)
+        (again,) = torch.autograd.grad(roi_align(f, boxes), f, g)
+        fp = feats.clone().requires_grad_(True)
+        (plain,) = torch.autograd.grad(roi_align_plain(fp, boxes), fp, g)
+        torch.cuda.synchronize()
+        rel = ((grad.float() - plain.float()).abs().max() / plain.float().abs().max()).item()
+        tol = 1e-4 if dtype == torch.float32 else 8e-3
+        check(grad.dtype == dtype and rel <= tol,
+              f"K2 feature gradient {name}: rel err {rel} > {tol}")
+        check(torch.equal(grad, again), f"K2 feature gradient {name} not bit-identical")
+        del grad, again, plain, fp
+        fwd_ms = cuda_ms(torch, lambda: roi_align(feats, boxes), 20)
+        bwd_ms = cuda_ms(torch, lambda: roi_align_feature_grad(g, boxes, 16, 16), 10)
+        ay, ax = roi_align_weights(boxes, 16, 16, 8, 1.0 / 32.0, 2)
+        w2t = (ay[:, :, :, None, :, None] * ax[:, :, None, :, None, :]).reshape(
+            TRAIN_BATCH, TRAIN_ROIS * 64, 256).transpose(1, 2)
+        g2 = g.reshape(TRAIN_BATCH, TRAIN_ROIS * 64, -1)
+        bmm_ms = cuda_ms(torch, lambda: torch.bmm(w2t, g2), 10)
+        plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            roi_align_plain(f, boxes), f, g), 2, warmup=1)
+        c = feats.shape[-1]
+        taps = roi_taps_needed(torch, boxes)
+        # the backward reads G once, writes dF once; the sparse taps need
+        # 2 FLOP per tap and channel (the dense product does 2*N*64*256*C)
+        nbytes = g.numel() * 4 + boxes.numel() * 4 + feats.numel() * feats.element_size()
+        flops = 2 * c * taps
+        dense = 2 * TRAIN_BATCH * TRAIN_ROIS * 64 * 256 * c
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        k2[name] = dict(ms=fwd_ms, max_abs_err=err, grad_rel_err=rel, backward_ms=bwd_ms,
+                        bmm_ms=bmm_ms, plain_backward_ms=plain_bwd_ms,
+                        backward_bound_ms=max(t_b, t_o) * 1e3,
+                        backward_bound_by="bytes" if t_b >= t_o else "operations",
+                        backward_dense_flop=dense,
+                        backward_dense_ms_at_peak=dense / F32_FLOP_PER_S * 1e3)
+        log(f"K2 roi_align training shape {name}: feats {tuple(feats.shape)} boxes "
+            f"{tuple(boxes.shape)} fwd err {err:.2e}, feature grad rel err {rel:.2e} "
+            f"(relaunch bit-identical); forward {fwd_ms:.4f} ms; backward product "
+            f"{bwd_ms:.3f} ms (torch.bmm alone {bmm_ms:.3f} ms; {dense / 1e9:.0f} GFLOP "
+            f"dense = {k2[name]['backward_dense_ms_at_peak']:.2f} ms at the f32 peak, no "
+            f"TF32); plain backward {plain_bwd_ms:.2f} ms; backward bound "
+            f"{k2[name]['backward_bound_ms']:.4f} ms ({k2[name]['backward_bound_by']}) "
+            f"[{result['card']}]")
+        del feats, boxes, g, f, w2t, g2
+        torch.cuda.empty_cache()
+    result["roi_align_train"] = k2
+
+
+def train_small_config():
+    """Shallow backbone, 64 training / 32 test proposals, 32 sampled RoIs,
+    a 2-layer 64-wide decoder, dropout off."""
+    from rgrg_tpu_torch.core import config as TC
+    return TC.ModelConfig(
+        detector=TC.DetectorConfig(backbone_stages=(1, 1, 1, 1),
+                                   rpn=TC.RPNConfig(pre_nms_top_n_train=64,
+                                                    post_nms_top_n_train=64,
+                                                    pre_nms_top_n_test=32),
+                                   roi=TC.RoIConfig(batch_size_per_image=32)),
+        decoder=TC.DecoderConfig(vocab_size=512, hidden_dim=64, num_heads=4, num_layers=2,
+                                 max_positions=64, bos_token_id=0, eos_token_id=0,
+                                 pad_token_id=0, embd_dropout=0.0, attn_dropout=0.0,
+                                 resid_dropout=0.0))
+
+
+def train_batch(np, seed, b, seq, vocab, size=512):
+    """A synthetic stage-3 batch in the task's geometry (as
+    scripts/bench_train_fullscale.py builds it): 29 region boxes on a grid
+    drawn brighter into the image, ~half the regions with a sentence of
+    8..seq-1 tokens over the whole vocabulary, ~20% abnormal."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(0.0, 0.15, (b, size, size, 1)).astype(np.float32)
+    boxes = np.zeros((b, 29, 4), np.float32)
+    has_sentence = rng.uniform(size=(b, 29)) < 0.5
+    is_abnormal = rng.uniform(size=(b, 29)) < 0.2
+    input_ids = np.zeros((b, 29, seq), np.int32)
+    attention_mask = np.zeros((b, 29, seq), np.float32)
+    for i in range(b):
+        for r in range(29):
+            gy, gx = divmod(r, 6)
+            cx = 45 + gx * 80 + rng.uniform(-12, 12)
+            cy = 55 + gy * 95 + rng.uniform(-12, 12)
+            w, h = rng.uniform(40, 90), rng.uniform(40, 90)
+            x0 = float(np.clip(cx - w / 2, 0, size - 2))
+            y0 = float(np.clip(cy - h / 2, 0, size - 2))
+            x1 = float(np.clip(cx + w / 2, x0 + 4, size - 1))
+            y1 = float(np.clip(cy + h / 2, y0 + 4, size - 1))
+            boxes[i, r] = (x0, y0, x1, y1)
+            level = 0.6 + 0.4 * (r / 28.0) + (0.35 if is_abnormal[i, r] else 0.0)
+            images[i, int(y0):int(y1), int(x0):int(x1), 0] += level
+            if has_sentence[i, r]:
+                n = int(rng.integers(8, seq))
+                input_ids[i, r, :n] = rng.integers(0, vocab, n)
+                attention_mask[i, r, :n] = 1.0
+    return {"images": images, "gt_boxes": boxes,
+            "gt_labels": np.tile(np.arange(1, 30, dtype=np.int32), (b, 1)),
+            "gt_valid": np.ones((b, 29), bool), "region_has_sentence": has_sentence,
+            "region_is_abnormal": is_abnormal, "input_ids": input_ids,
+            "attention_mask": attention_mask}
+
+
+def sampling_draws(np, seed, b, n_anchors, n_pool):
+    """Uniform keys for one training forward, in the port's call order (RPN
+    positives and negatives [B, N], RoI positives and negatives [B, K+G]),
+    fed to the card and the CPU alike."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(size=(b, n)).astype(np.float32)
+            for n in (n_anchors, n_anchors, n_pool, n_pool)]
+
+
+def _rel_l2(torch, a, b):
+    nb = b.float().norm().item()
+    d = (a.float().cpu() - b.float().cpu()).norm().item()
+    return d / nb if nb > 0 else d
+
+
+def phase_train_reference(np, torch, dev, result):
+    """(c) One stage-3 training step of the small model on the card and on
+    the CPU from the same weights, batch and sampling keys (f32, dropout
+    off): grad_accumulation_steps 1, then a 4-mini-step update. Losses
+    within 1e-4 relative, every trainable gradient outside the backbone
+    within 1e-3 relative L2 and the backbone's within 1e-2 (f32's own error
+    there: `backbone_gradient_vs_f64` holds both devices within 1e-2 of an
+    f64 reference),
+    parameters after each update within 2 x lr (a gradient of noise size
+    can flip the sign of Adam's first step; the card restarts from the
+    CPU's state before the accumulated update), BatchNorm running
+    statistics within 1e-5, the frozen GPT-2 base bit-unchanged, and the
+    K1 and K2 counters advanced on the card. The batch is the first seeded
+    one whose training decisions clear tests/torch_parity.TRAINING_MARGINS."""
+    import copy
+    from rgrg_tpu_torch.core import config as TC
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.train import trainer
+    from tests.torch_parity import TRAINING_MARGINS, training_margins
+
+    cfg = train_small_config()
+    model = RGRG(cfg)
+    cpu = torch.device("cpu")
+    p_cpu = RGRG(cfg).init(seed=5, device=cpu)
+    p_gpu = {"detector": copy.deepcopy(p_cpu["detector"]).to(dev),
+             "decoder": _tree_map(p_cpu["decoder"], lambda t: t.to(dev, copy=True))}
+    n_anchors = cfg.detector.anchors.num_anchors_per_location * 256
+    n_pool = cfg.detector.rpn.pre_nms_top_n(True) + 29
+    for seed in range(40):
+        batch = train_batch(np, seed, 2, 16, cfg.decoder.vocab_size)
+        draws = sampling_draws(np, seed, 2, n_anchors, n_pool)
+        t = trainer.batch_to_device(batch, cpu)
+        m = training_margins(p_cpu["detector"], t["images"], t["gt_boxes"], t["gt_labels"],
+                             t["gt_valid"], draws[2:])
+        if all(m[k] >= v for k, v in TRAINING_MARGINS.items()):
+            break
+    else:
+        raise RuntimeError("check failed: no seeded training batch with decision margins")
+    tc1 = TC.TrainConfig(grad_accumulation_steps=1)
+    lr = tc1.learning_rate
+    frozen0 = p_cpu["decoder"]["h_0"]["attn"]["c_attn"]["kernel"].clone()
+    states, grads, losses = {}, {}, {}
+    nms_keep_mask.launches = roi_align.launches = 0
+    for name, params in (("cpu", p_cpu), ("gpu", p_gpu)):
+        opt = trainer.make_optimizer(params, tc1, stage=3)
+        d = cpu if name == "cpu" else dev
+        total, ls = trainer.compute_losses(model, params, trainer.batch_to_device(batch, d),
+                                           iter(draws), 3, tc1, 16)
+        total.backward()
+        grads[name] = [t.grad.detach().clone().cpu() for t in opt.tensors]
+        losses[name] = {k: float(v.detach()) for k, v in ls.items()}
+        opt.step()
+        states[name] = (params, opt)
+    launches = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches}
+    check(launches["nms"] >= 1 and launches["roi_align"] >= 1,
+          f"the card's training step did not launch K1 and K2: {launches}")
+    loss_err = max(abs(losses["gpu"][k] - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
+                   for k in losses["cpu"])
+    check(loss_err <= 1e-4, f"training losses card vs CPU rel err {loss_err}")
+    names = [n for n, _ in p_cpu["detector"].named_parameters()]
+    names += [f"decoder trainable {i}" for i in range(len(grads["cpu"]) - len(names))]
+    errs = sorted(((_rel_l2(torch, g, c), n) for g, c, n in
+                   zip(grads["gpu"], grads["cpu"], names)), reverse=True)
+    grad_err = errs[0][0]
+    log(f"training reference: worst gradients card vs CPU (rel L2) "
+        f"{[(n, float('%.2e' % e)) for e, n in errs[:6]]}; losses "
+        f"{ {k: (losses['cpu'][k], losses['gpu'][k]) for k in losses['cpu']} }")
+    head_err = max(e for e, n in errs if not n.startswith("backbone."))
+    check(head_err <= 1e-3, f"training gradients card vs CPU rel L2 {head_err} outside "
+          f"the backbone")
+    check(grad_err <= 1e-2, f"training gradients card vs CPU rel L2 {grad_err}")
+    f64_errs = backbone_gradient_vs_f64(np, torch, dev, p_cpu["detector"].backbone)
+    check(f64_errs["card"] <= 1e-2 and f64_errs["cpu"] <= 1e-2,
+          f"backbone f32 gradients vs f64: {f64_errs}")
+
+    def compare(what, updates):
+        dc, dg = p_cpu["detector"], p_gpu["detector"]
+        perr = max((a.detach().cpu() - b.detach()).abs().max().item()
+                   for a, b in zip(states["gpu"][1].tensors, states["cpu"][1].tensors))
+        # a flipped sign moves a weight by 2 x lr, plus the f32 rounding of
+        # weights of magnitude up to ~8
+        check(perr <= 2 * lr * updates + 1e-6,
+              f"{what}: params card vs CPU differ by {perr} > 2 x lr x {updates} updates")
+        serr = max((a.cpu() - b).abs().max().item() / max(1.0, b.abs().max().item())
+                   for (n, a), (_, b) in zip(dg.named_buffers(), dc.named_buffers())
+                   if "running" in n)
+        check(serr <= 1e-5, f"{what}: BN running statistics card vs CPU differ by {serr}")
+        for p in (p_cpu, p_gpu):
+            check(torch.equal(p["decoder"]["h_0"]["attn"]["c_attn"]["kernel"].cpu(), frozen0),
+                  f"{what}: the frozen GPT-2 base moved")
+        return perr, serr
+
+    perr1, serr1 = compare("one step", 1)
+    # one update of 4 mini-steps (the same batch and keys each time), both
+    # devices starting from the CPU's state, so the batch statistics come
+    # from the same weights
+    with torch.no_grad():
+        p_gpu["detector"].load_state_dict(p_cpu["detector"].state_dict())
+        for a, c in zip(trainer.leaves(p_gpu["decoder"]), trainer.leaves(p_cpu["decoder"])):
+            a.copy_(c)
+    tc4 = TC.TrainConfig(grad_accumulation_steps=4)
+    for name, params in (("cpu", p_cpu), ("gpu", p_gpu)):
+        state = trainer.TrainState(params, trainer.make_optimizer(params, tc4, stage=3), 0)
+        states[name] = (params, state.opt_state)
+        step = trainer.make_train_step(model, tc4, stage=3, lm_budget=16)
+        for i in range(4):
+            state, _ = step(state, batch, iter(draws))
+            check(state.opt_state.mini_step == (i + 1) % 4, "accumulation count")
+    perr4, serr4 = compare("4-mini-step update", 1)
+    # the RoI-head losses alone reach the backbone through K2's backward
+    det = p_gpu["detector"]
+    for p in det.parameters():
+        p.grad = None
+    ls, _ = det.train_forward(*(trainer.batch_to_device(batch, dev)[k] for k in
+                                ("images", "gt_boxes", "gt_labels", "gt_valid")), iter(draws))
+    (ls["loss_classifier"] + ls["loss_box_reg"]).backward()
+    check(det.backbone.conv1.weight.grad is not None
+          and det.backbone.conv1.weight.grad.abs().sum().item() > 0,
+          "the RoI-head loss gave the backbone no gradient on the card")
+    log(f"training reference (small model, batch seed {seed}, margins "
+        f"{ {k: float('%.1e' % v) for k, v in m.items()} }): card == CPU, losses rel err "
+        f"{loss_err:.1e}, gradients rel L2 {head_err:.1e} outside the backbone, {grad_err:.1e} "
+        f"in all {len(grads['cpu'])} tensors (backbone f32 vs f64: card {f64_errs['card']:.1e}, "
+        f"CPU {f64_errs['cpu']:.1e}), "
+        f"params after one step {perr1:.1e} / after the 4-mini-step update {perr4:.1e} "
+        f"(2 x lr = {2 * lr:.0e} per update), BN statistics {max(serr1, serr4):.1e}, frozen base "
+        f"unchanged; card launches {launches} [{result['card']}]")
+    result["train_reference"] = dict(seed=seed, losses=losses, loss_rel_err=loss_err,
+                                     grad_rel_l2=grad_err, grad_rel_l2_heads=head_err,
+                                     worst_grads=errs[:8], backbone_vs_f64=f64_errs, param_err=[perr1, perr4],
+                                     bn_err=[serr1, serr4], launches=launches)
+
+
+def backbone_gradient_vs_f64(np, torch, dev, backbone):
+    """The train-mode backbone's parameter gradients of a fixed loss
+    (sum(w * max(C5, 0.1)) over a seeded 2 x 512 x 512 batch) in f32 on the
+    card and on the CPU against the CPU in f64: the worst relative L2 of
+    each. On a random network the early BatchNorm gradients sum ~131k
+    nearly cancelling terms, so f32 carries ~1e-3 of error on any device;
+    this measures how far each device is from the exact gradient."""
+    import copy
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 512, 512, 1)))
+    w = torch.from_numpy(rng.normal(0, 1, (2, 16, 16, 2048)))
+
+    def grads(device, dtype):
+        m = copy.deepcopy(backbone).to(device, dtype)
+        m.dtype = dtype
+        m.train()
+        y = m(x.to(device, dtype))
+        (torch.clamp(y, min=0.1) * w.to(device, dtype)).sum().backward()
+        return {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+    ref = grads(torch.device("cpu"), torch.float64)
+    out = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        g = grads(device, torch.float32)
+        out[name] = max(float((g[n] - ref[n]).norm() / ref[n].norm()) for n in ref)
+    return out
+
+
+def train_flops(cfg, b, lm_rows, seq):
+    """FLOP of one full-width training mini-step, counted from the shapes:
+    the backbone's convs forward (hooks on a meta-device copy) x3 for the
+    backward (input and weight gradients); the RPN head's convs x3; fc6 and
+    the rest of the box head x3; K2's backward product (dense, as run); the
+    decoder over lm_rows x seq tokens forward plus its activation gradient
+    (its weights are frozen but uk / uv), x2; the LM head x2."""
+    import torch
+    from rgrg_tpu_torch.core import constants as C
+    from rgrg_tpu_torch.models.layers import Conv2d
+    from rgrg_tpu_torch.models.resnet import ResNetBackbone
+    det = cfg.detector
+    with torch.device("meta"):
+        bb = ResNetBackbone(det.backbone_stages)
+    conv = [0]
+
+    def hook(m, inp, out):
+        conv[0] += 2 * out.numel() * m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+    for m in bb.modules():
+        if isinstance(m, Conv2d):
+            m.register_forward_hook(hook)
+    bb(torch.empty((b, det.image_size, det.image_size, 1), device="meta"))
+    hw = 16 * 16
+    a = det.anchors.num_anchors_per_location
+    ch = C.BACKBONE_CHANNELS
+    rpn = 2 * b * hw * ch * (ch * 9 + a * 5)
+    s = det.roi.batch_size_per_image
+    rep = det.roi.representation_size
+    fc6 = 2 * b * s * 64 * ch * rep
+    head = 2 * b * s * rep * (rep + det.num_classes * 5) + 2 * b * 29 * ch * C.REGION_FEATURE_DIM
+    k2_bwd = 2 * b * s * 64 * hw * ch
+    dec = cfg.decoder
+    d = dec.hidden_dim
+    tokens = lm_rows * seq
+    per_token = dec.num_layers * 2 * (d * 3 * d + d * d + 2 * d * 4 * d + 2 * seq * d)
+    lm_head = 2 * tokens * d * dec.vocab_size
+    parts = {"backbone": 3 * conv[0], "rpn_head": 3 * rpn, "fc6": 3 * fc6,
+             "box_head_rest": 3 * head, "k2_backward": k2_bwd,
+             "decoder": 2 * tokens * per_token, "lm_head": 2 * lm_head}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def phase_train_full_width(np, torch, dev, result):
+    """(d) The training path at the reference's full width through
+    train.loop.train: RGRGConfig() defaults (ResNet-50 at 512x512, 2000
+    training proposals, 512 sampled RoIs; GPT-2 Medium; batch 16,
+    accumulation 4, LM budget 128, sequences of 64; f32 detector and
+    decoder, TF32 off), seeded random weights, synthetic stage-3 batches.
+    8 mini-steps (2 updates) with a checkpoint every 4, then resumed from
+    `last` for 4 more; 4 mini-steps of stage 1; 4 mini-steps of the bf16
+    recipe (bf16 detector, mixed_precision, remat_decoder, LM budget 256)
+    through make_train_step. Returns the K1 / K2 launches of these runs."""
+    import shutil
+    from rgrg_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from rgrg_tpu_torch.core.config import DetectorConfig, ModelConfig, RGRGConfig
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.train import loop, losses as L, trainer
+
+    cfg = RGRGConfig()
+    tcfg, mcfg = cfg.train, cfg.model
+    dec = mcfg.decoder
+    check((mcfg.detector.backbone_stages, mcfg.detector.rpn.pre_nms_top_n_train,
+           mcfg.detector.roi.batch_size_per_image, dec.num_layers, dec.hidden_dim,
+           dec.num_heads, dec.vocab_size, tcfg.batch_size, tcfg.grad_accumulation_steps)
+          == ((3, 4, 6, 3), 2000, 512, 24, 1024, 16, 50257, 16, 4),
+          "the training config is not the reference's full width")
+    b = tcfg.batch_size
+    roi = mcfg.detector.roi
+    chunks = -(-roi.batch_size_per_image // roi.proposal_chunk)
+    run_dir = os.path.join(ROOT, "build", "smoke_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    batches = [train_batch(np, 100 + i, b, TRAIN_SEQ, dec.vocab_size) for i in range(12)]
+    out, counted = {}, {"nms": 0, "roi_align": 0}
+
+    # per mini-step: losses (from the step function) and the LM's target tokens
+    step_losses, lm_tokens = [], []
+    make_step, lm_loss = trainer.make_train_step, L.lm_loss_selected
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng):
+            state, losses = step(state, batch, rng)
+            step_losses.append(losses)
+            return state, losses
+        return run
+
+    def counting_lm_loss(params, input_ids, attention_mask, feats, seq_valid, c, budget,
+                         **kw):
+        flat = seq_valid.reshape(-1)
+        idx = torch.sort((~flat).to(torch.int32), stable=True).indices[:budget]
+        mask = attention_mask.reshape(flat.shape[0], -1)[idx] * flat[idx, None]
+        lm_tokens.append(mask[:, 1:].sum())
+        return lm_loss(params, input_ids, attention_mask, feats, seq_valid, c, budget, **kw)
+
+    def drive(name, fn, ms_per_update_k):
+        """Run fn() with the counters at 0 and a synchronized clock at
+        every batch handed out; returns per-mini-step ms."""
+        marks = []
+
+        def feed(items):
+            def gen():
+                for item in items:
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                    yield item
+            return gen
+        step_losses.clear()
+        lm_tokens.clear()
+        nms_keep_mask.launches = roi_align.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ret = fn(feed)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        marks.append(time.perf_counter())
+        steps = len(step_losses)
+        launches = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches}
+        check(launches == {"nms": steps, "roi_align": chunks * steps},
+              f"{name}: launches {launches} != 1 NMS and {chunks} RoIAlign per mini-step "
+              f"x {steps}")
+        for k in counted:
+            counted[k] += launches[k]
+        ms = [(marks[i + 1] - marks[i]) * 1e3 for i in range(len(marks) - 1)][:steps]
+        finite = all(bool(torch.isfinite(v).all()) for ls in step_losses for v in ls.values())
+        check(finite, f"{name}: a loss is not finite")
+        steady = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+        tokens = [int(t) for t in lm_tokens]
+        row = dict(ms_per_mini_step=ms, steady_ms=steady, steps=steps, total_s=total_s,
+                   ms_per_update=steady * ms_per_update_k,
+                   images_per_s=b / steady * 1e3,
+                   lm_tokens_per_step=tokens,
+                   lm_tokens_per_s=(sum(tokens) / len(tokens) / steady * 1e3) if tokens else 0,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+                   losses={k: float(v) for k, v in step_losses[-1].items()})
+        log(f"train {name}: {steps} mini-steps, ms each {['%.0f' % t for t in ms]}, median "
+            f"after the first {steady:.1f} ms = {row['images_per_s']:.1f} images/s, "
+            f"{row['ms_per_update']:.0f} ms per update, LM target tokens/s "
+            f"{row['lm_tokens_per_s']:.0f} ({tokens[:4]} a mini-step), peak "
+            f"{row['peak_gb']:.1f} GB, launches {launches}, last losses "
+            f"{ {k: round(v, 4) for k, v in row['losses'].items()} } [{result['card']}]")
+        out[name] = row
+        return ret
+
+    trainer.make_train_step, L.lm_loss_selected = recording_step, counting_lm_loss
+    try:
+        model = RGRG(mcfg)
+        state = drive("stage 3 f32 (loop, 8 mini-steps)", lambda feed: loop.train(
+            model, cfg, feed(batches[:8]), run_dir, stage=3, lm_budget=TRAIN_LM_BUDGET,
+            checkpoint_every=4, max_steps=8, device=dev), tcfg.grad_accumulation_steps)
+        check(state.step == 8 and state.opt_state.mini_step == 0, "8 mini-steps, 2 updates")
+        for name in ("step_4", "step_8", "last"):
+            check(os.path.isfile(os.path.join(run_dir, name, "train_state.pt")),
+                  f"no {name} checkpoint")
+        check(os.path.getsize(os.path.join(run_dir, "metrics.jsonl")) > 0, "no metrics.jsonl")
+        for name in ("step_4", "step_8"):   # the disk holds a few 4 GB states at most
+            shutil.rmtree(os.path.join(run_dir, name))
+        ref = RGRG(mcfg).init(tcfg.seed, device=dev)
+        moved = lambda a, b: not torch.equal(a, b)  # noqa: E731
+        dflat = trainer.leaves(state.params["decoder"])
+        rflat = trainer.leaves(ref["decoder"])
+        tmask = trainer.leaves(trainer.decoder_trainable_mask(state.params["decoder"]))
+        check(all(moved(a, r) == m for a, r, m in zip(dflat, rflat, tmask)),
+              "stage 3 must move uk / uv / feature_transform and leave the GPT-2 base "
+              "bit-unchanged")
+        det_moved = [moved(a, r) for a, r in zip(state.params["detector"].parameters(),
+                                                 ref["detector"].parameters())]
+        check(all(det_moved), f"{det_moved.count(False)} detector tensors did not move")
+        stats = dict(state.params["detector"].named_buffers())
+        rstats = dict(ref["detector"].named_buffers())
+        check(all(moved(stats[k], rstats[k]) for k in stats if "running" in k),
+              "BatchNorm running statistics did not move")
+        del ref
+        t = time.perf_counter()
+        save_checkpoint(os.path.join(run_dir, "probe"), state)
+        out["checkpoint_save_s"] = time.perf_counter() - t
+        out["checkpoint_gb"] = os.path.getsize(
+            os.path.join(run_dir, "probe", "train_state.pt")) / 1e9
+        fresh = trainer.init_train_state(model, 0, tcfg, stage=3, device=dev)
+        t = time.perf_counter()
+        load_checkpoint(os.path.join(run_dir, "last"), fresh)
+        out["checkpoint_load_s"] = time.perf_counter() - t
+        same = (fresh.step == 8
+                and all(torch.equal(a, c) for a, c in zip(
+                    state.params["detector"].state_dict().values(),
+                    fresh.params["detector"].state_dict().values()))
+                and all(torch.equal(a, c) for a, c in zip(dflat, trainer.leaves(
+                    fresh.params["decoder"]))))
+        check(same, "the checkpoint does not restore the trained state bit for bit")
+        # one mini-step profiled (device busy and idle share); then drop the
+        # states before the resumed run builds its own
+        step_fn = make_step(model, tcfg, stage=3, lm_budget=TRAIN_LM_BUDGET)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out["profile"] = profiled(torch, lambda: step_fn(state, batches[8], gen),
+                                  out["stage 3 f32 (loop, 8 mini-steps)"]["steady_ms"],
+                                  "train profile f32 mini-step", "mini-step")
+        del state, fresh, dflat, step_fn
+        shutil.rmtree(os.path.join(run_dir, "probe"))
+        torch.cuda.empty_cache()
+
+        resumed = drive("stage 3 f32 resumed (loop, 4 mini-steps)", lambda feed: loop.train(
+            model, cfg, feed(batches[8:12]), run_dir, stage=3, lm_budget=TRAIN_LM_BUDGET,
+            resume_from=os.path.join(run_dir, "last"), max_steps=12, device=dev),
+            tcfg.grad_accumulation_steps)
+        check(resumed.step == 12 and len(step_losses) == 4,
+              "the resumed run did not start at step 8")
+        del resumed
+        shutil.rmtree(run_dir)
+        torch.cuda.empty_cache()
+
+        s1 = drive("stage 1 (loop, 4 mini-steps, lr 1e-3)", lambda feed: loop.train(
+            model, cfg, feed(batches[:4]), run_dir, stage=1, max_steps=4, device=dev),
+            tcfg.grad_accumulation_steps)
+        check(set(step_losses[-1]) == {"loss_objectness", "loss_rpn_box_reg",
+                                       "loss_classifier", "loss_box_reg", "loss_total"}
+              and s1.opt_state.base_lr == tcfg.detector_learning_rate, "stage 1 losses / lr")
+        del s1
+        shutil.rmtree(run_dir)
+        torch.cuda.empty_cache()
+
+        cfg16 = ModelConfig(detector=DetectorConfig(dtype="bfloat16"))
+        model16 = RGRG(cfg16)
+        st16 = trainer.init_train_state(model16, tcfg.seed, tcfg, stage=3, device=dev)
+        step16 = recording_step(model16, tcfg, stage=3, lm_budget=2 * TRAIN_LM_BUDGET,
+                                mixed_precision=True, remat_decoder=True)
+        gen16 = torch.Generator(device=dev).manual_seed(tcfg.seed + 1)
+
+        def bf16_run(feed):
+            for batch in feed(batches[:4])():
+                step16(st16, batch, gen16)
+        drive("stage 3 bf16 recipe (make_train_step, 4 mini-steps, budget 256, remat)",
+              bf16_run, tcfg.grad_accumulation_steps)
+        check(st16.step == 4 and st16.opt_state.mini_step == 0, "bf16 recipe update")
+        out["profile_bf16"] = profiled(
+            torch, lambda: step16(st16, batches[4], gen16),
+            out["stage 3 bf16 recipe (make_train_step, 4 mini-steps, budget 256, remat)"]
+            ["steady_ms"], "train profile bf16 mini-step", "mini-step")
+        del st16
+        torch.cuda.empty_cache()
+    finally:
+        trainer.make_train_step, L.lm_loss_selected = make_step, lm_loss
+    flops = train_flops(mcfg, b, TRAIN_LM_BUDGET, TRAIN_SEQ)
+    f32 = out["stage 3 f32 (loop, 8 mini-steps)"]
+    out["flops"] = flops
+    out["share_of_f32_peak"] = flops["total"] / (f32["steady_ms"] / 1e3) / F32_FLOP_PER_S
+    log(f"train FLOP per mini-step (from the shapes): "
+        + ", ".join(f"{k} {v / 1e12:.2f} T" for k, v in flops.items())
+        + f"; f32 recipe at {f32['steady_ms']:.0f} ms = "
+        f"{flops['total'] / (f32['steady_ms'] / 1e3) / 1e12:.1f} TFLOP/s, "
+        f"{out['share_of_f32_peak']:.1%} of the 67 TFLOP/s f32 peak (TF32 off); "
+        f"checkpoint {out['checkpoint_gb']:.2f} GB, save {out['checkpoint_save_s']:.1f} s, "
+        f"load {out['checkpoint_load_s']:.1f} s [{result['card']}]")
+    result["train"] = out
+    return counted
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1739,6 +2349,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s}
     phase_nms(np, torch, dev, result)
     phase_roi(np, torch, dev, result)
+    phase_train_kernels(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_LONG_SLOTS,
                     kinds=("bf16", "f32"), key="beam_attention_long")
@@ -1748,29 +2359,45 @@ def main() -> int:
         phase_reference(np, torch, dev)
         phase_eval_reference(np, torch, dev, result)
     phase_reference_serving(np, torch, dev)
+    phase_train_reference(np, torch, dev, result)
     cfg = full_width_config()
     launches, gen = phase_main(np, torch, dev, result, cfg)
     k4_launches = phase_serving(np, torch, dev, result, gen, cfg)
     with distilbert_dir(distilbert):
         phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
         phase_eval_full_width(np, torch, dev, result, gen, cfg)
+    del gen
+    torch.cuda.empty_cache()
+    train_launches = phase_train_full_width(np, torch, dev, result)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]
+    k1t, k2t = result["nms_train"]["N=2000"], result["roi_align_train"]["f32"]
     k3 = result["beam_attention"]["bf16 slot 31"]
     kernels_line = {"kernels": [
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
          "replaces": "rgrg_tpu/ops/nms_pallas.py:52",
-         "launches": launches["nms"], "max_abs_err": k1["max_abs_err"],
+         "launches": launches["nms"] + train_launches["nms"],
+         "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
+         "bound_by": k1["bound_by"], "library_ms": None,
+         "train_ms": k1t["ms"], "train_bound_ms": k1t["bound_ms"],
+         "shape": "B=8 x N=1000 (serving); train_*: B=16 x N=2000; launches: the "
+                  "beam-4 serving requests plus the full-width training runs"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
-         "launches": launches["roi_align"], "max_abs_err": k2["max_abs_err"],
+         "launches": launches["roi_align"] + train_launches["roi_align"],
+         "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+         "bound_by": k2["bound_by"], "library_ms": None,
+         "train_ms": k2t["ms"], "train_backward_ms": k2t["backward_ms"],
+         "train_backward_bmm_ms": k2t["bmm_ms"],
+         "train_backward_bound_ms": k2t["backward_bound_ms"],
+         "shape": "B=8 x 256 RoIs, bf16 features (serving); train_*: B=16 x 256 RoIs, "
+                  "f32, the backward a torch.bmm over the fused weights; launches: the "
+                  "beam-4 serving requests plus the full-width training runs"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",

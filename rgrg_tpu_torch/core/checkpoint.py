@@ -1,4 +1,12 @@
-"""Load a reference RGRG `.pt` checkpoint.
+"""Training-state checkpoints, and loading a reference RGRG `.pt`.
+
+`save_checkpoint` / `load_checkpoint` write and restore a whole
+train.trainer.TrainState with torch.save: the detector's state dict (its
+BatchNorm running statistics included), the decoder's tensors, the
+optimizer (AdamW moments, the accumulated gradient mean and its mini-step,
+the LR scale) and the step. A checkpoint is a directory holding
+`train_state.pt`; loading reads it with weights_only=True into a state of
+the same structure, bit for bit.
 
 `load_torch_checkpoint` reads the file on the CPU and returns its model
 state dict: the reference saves {"model": state_dict, "optimizer": ...,
@@ -11,6 +19,7 @@ name of the RPN conv.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -57,3 +66,47 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
         return ckpt["model"]
     return ckpt
+
+
+STATE_FILE = "train_state.pt"
+
+
+def _decoder_flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_decoder_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def save_checkpoint(path: str, state: Any) -> None:
+    """Write a TrainState to the directory `path` (replacing what is
+    there), through a temporary file."""
+    os.makedirs(path, exist_ok=True)
+    blob = {"detector": state.params["detector"].state_dict(),
+            "decoder": _decoder_flat(state.params["decoder"]),
+            "optimizer": state.opt_state.state_dict(),
+            "step": int(state.step)}
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+
+
+@torch.no_grad()
+def load_checkpoint(path: str, target: Any) -> Any:
+    """Restore the TrainState saved under `path` into `target` (built for
+    the same model, stage and optimizer) in place, and return it."""
+    blob = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                      weights_only=True)
+    target.params["detector"].load_state_dict(blob["detector"])
+    dec = _decoder_flat(target.params["decoder"])
+    if set(dec) != set(blob["decoder"]):
+        raise ValueError(f"decoder tensors differ from the checkpoint's: "
+                         f"{sorted(set(dec) ^ set(blob['decoder']))[:8]}")
+    for name, t in dec.items():
+        t.copy_(blob["decoder"][name])
+    target.opt_state.load_state_dict(blob["optimizer"])
+    target.step = int(blob["step"])
+    return target

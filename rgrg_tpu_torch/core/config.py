@@ -1,10 +1,7 @@
-"""Typed configuration of the inference path (the port's own copy).
+"""Typed configuration of the model and its training (the port's own copy).
 
 Field names and defaults equal the JAX package's configs so the two can be
-built side by side. Only the settings the serving paths (greedy and beam
-search) read are kept; training-only settings arrive with the training
-slice. There is no
-NMS or RoIAlign implementation knob: the detector always calls
+built side by side. There is no NMS or RoIAlign implementation knob: the detector always calls
 ops.nms.nms_keep_mask and ops.roi_align.roi_align, which dispatch on the
 tensor's device (plain PyTorch on the CPU, the hand-written kernel on CUDA).
 """
@@ -36,13 +33,23 @@ class AnchorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RPNConfig:
-    """Region proposal settings read at inference."""
+    """Region proposal settings."""
 
-    # proposals kept per image before and after NMS (one count: the keep
-    # mask needs no truncation)
+    # anchor matching and balanced sampling of the RPN loss
+    fg_iou_thresh: float = 0.7
+    bg_iou_thresh: float = 0.3
+    batch_size_per_image: int = 256
+    positive_fraction: float = 0.5
+    # proposals kept per image before and after NMS, in training and at
+    # test (post == pre: the keep mask needs no truncation)
+    pre_nms_top_n_train: int = 2000
     pre_nms_top_n_test: int = 1000
+    post_nms_top_n_train: int = 2000
     nms_thresh: float = 0.7
     min_box_size: float = 1e-3
+
+    def pre_nms_top_n(self, train: bool) -> int:
+        return self.pre_nms_top_n_train if train else self.pre_nms_top_n_test
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +57,11 @@ class RoIConfig:
     output_size: int = 8             # RoIAlign output resolution
     sampling_ratio: int = 2          # RoIAlign samples per bin edge
     representation_size: int = 1024  # TwoMLPHead width
+    # training-time proposal matching and sampling
+    fg_iou_thresh: float = 0.5
+    bg_iou_thresh: float = 0.5
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
     bbox_reg_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
     # proposals per RoI-head chunk: bounds the pooled [B, chunk, 8, 8, 2048]
     # f32 intermediate
@@ -77,6 +89,9 @@ class DetectorConfig:
 class ClassifierConfig:
     """The two binary-classifier MLP heads over region features."""
 
+    # BCE pos_weight of the selection / abnormal losses
+    selection_pos_weight: float = 2.2
+    abnormal_pos_weight: float = 6.0
     # logit threshold -1.0 == probability 0.269
     logit_threshold: float = -1.0
 
@@ -94,6 +109,11 @@ class DecoderConfig:
     bos_token_id: int = C.BOS_TOKEN_ID
     eos_token_id: int = C.EOS_TOKEN_ID
     pad_token_id: int = C.PAD_TOKEN_ID
+    # training dropout on the embeddings, the attention weights and both
+    # residual branches (forward_full; the generation path has none)
+    embd_dropout: float = 0.1
+    attn_dropout: float = 0.1
+    resid_dropout: float = 0.1
     layer_norm_eps: float = 1e-5
     # the published checkpoints look position embeddings up in the WORD
     # embedding table (wte), not wpe; kept for weight-compatible output
@@ -121,3 +141,49 @@ class ModelConfig:
     classifier: ClassifierConfig = ClassifierConfig()
     decoder: DecoderConfig = DecoderConfig()
     generation: GenerationConfig = GenerationConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Multi-task training of the three-stage protocol."""
+
+    pretrain_without_lm: bool = False
+    batch_size: int = 16
+    grad_accumulation_steps: int = 4   # effective batch 64
+    learning_rate: float = 5e-5
+    detector_learning_rate: float = 1e-3  # stage-1 (detector only) LR
+    evaluate_every_k_batches: int = 2400
+    weight_decay: float = 1e-2
+    seed: int = 42
+    # loss weights: detector 1, selection 5, abnormal 5, LM 2
+    loss_weight_detector: float = 1.0
+    loss_weight_selection: float = 5.0
+    loss_weight_abnormal: float = 5.0
+    loss_weight_lm: float = 2.0
+    # ReduceLROnPlateau(mode="min", relative threshold)
+    lr_patience: int = 5
+    lr_factor: float = 0.5
+    lr_threshold: float = 1e-3
+    lr_cooldown: int = 5
+    # validations without a new best before training stops (None: never)
+    early_stop_patience: Optional[int] = None
+    bf16: bool = True
+    # language-generation evaluation starts after this many steps
+    lm_eval_min_steps: int = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device layout, kept as a record: the port trains on one card."""
+
+    data_axis: str = "data"
+    num_devices: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RGRGConfig:
+    model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
+    # BERTScore soft-dedup threshold
+    bertscore_similarity_threshold: float = 0.9

@@ -29,7 +29,7 @@ from rgrg_tpu_torch.core.config import ModelConfig
 from rgrg_tpu_torch.core.device import DeviceLike, resolve_device
 from rgrg_tpu_torch.models.detector import RegionDetector
 from rgrg_tpu_torch.models.heads import Fc6
-from rgrg_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d, Linear
+from rgrg_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -84,7 +84,7 @@ def load_detector_(detector: RegionDetector, variables: Mapping[str, Any]) -> No
                 _copy(m.kernel, kernel, name)
             _copy(m.bias, _tensor(p["bias"]), name)
             used |= {f"params.{name}.kernel", f"params.{name}.bias"}
-        elif isinstance(m, FrozenBatchNorm2d):
+        elif isinstance(m, BatchNorm2d):
             p, s = _subtree(params, name), _subtree(stats, name)
             _copy(m.weight, _tensor(p["scale"]), name)
             _copy(m.bias, _tensor(p["bias"]), name)

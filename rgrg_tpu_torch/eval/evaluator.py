@@ -11,6 +11,8 @@ harnesses:
   - language metrics: generated region sentences -> NLG scores (sentence
     and report level) and CheXbert CE scores; decode output is already
     [B, 29, L], so each sentence keeps its region;
+  - validation losses (`validation_losses`): the training losses per
+    module under eval semantics, with a fixed sampling generator;
   - bbox-variation robustness (evaluate_bbox_variations.py): perturb gt
     boxes by position/scale/aspect-ratio noise of increasing std, RoI-pool
     features directly from the perturbed boxes (RPN bypassed), decode, and
@@ -36,6 +38,7 @@ from rgrg_tpu_torch.eval import nlg
 from rgrg_tpu_torch.models.full_model import RGRG, Params
 from rgrg_tpu_torch.text.report import assemble_report
 from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
+from rgrg_tpu_torch.train.trainer import batch_to_device, compute_losses
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +374,32 @@ def evaluate_model(model: RGRG, params: Params,
         if collector.gen_reports:
             write_reports_txt(collector, artifacts_dir, step)
     return out
+
+
+def validation_losses(model: RGRG, params: Params, batches: Iterable[Dict[str, Any]],
+                      stage: int, tcfg, lm_budget: int = 128, max_batches: int = 20,
+                      rng: Optional[Callable[[], Any]] = None) -> Dict[str, float]:
+    """Per-module validation losses averaged over up to `max_batches`
+    batches ("total" and each loss), computed as train.trainer.compute_losses
+    does with train=False: BatchNorm running statistics, no dropout, the test
+    RPN top-n. Every batch samples its proposals from the same draws: a
+    generator seeded 0 on the params' device, or `rng()` (a fresh sampling
+    source per batch), so the same batch always gives the same losses."""
+    dev = _device_of(params)
+    sums: Dict[str, float] = {}
+    n = 0
+    for bi, batch in enumerate(batches):
+        if bi >= max_batches:
+            break
+        source = (torch.Generator(device=dev).manual_seed(0) if rng is None else rng())
+        with torch.no_grad():
+            total, losses = compute_losses(model, params, batch_to_device(batch, dev),
+                                           source, stage, tcfg, lm_budget, train=False)
+        sums["total"] = sums.get("total", 0.0) + float(total)
+        for k, v in losses.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n += 1
+    return {k: v / n for k, v in sums.items()} if n else {"total": 0.0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Anatomical-region detector, eval forward, static shapes end to end.
+"""Anatomical-region detector: the eval forward and the training forward,
+static shapes end to end.
 
   - the RPN keeps a fixed top-k proposal set per image with a validity mask
     instead of compacting after NMS (ops/nms.py, kernel K1 on the card);
@@ -6,7 +7,10 @@
     the card) into the TwoMLP box head and the class/box predictor;
   - top-1-per-class decoding is an argmax/gather over [B, K, 29] scores;
   - the region-selection and region-abnormal classifiers run in the same
-    forward; "nothing selected" is an all-False `selected_regions` mask.
+    forward; "nothing selected" is an all-False `selected_regions` mask;
+  - `train_forward` computes the RPN and RoI losses, running the RoI head on
+    the sampled gt-augmented proposals (train/losses.py); its gradient
+    reaches the backbone through RoIAlign's backward (ops/roi_align.py).
 
 Ties break by the lower index everywhere, as in the reference: the top-k
 keeps lax.top_k's order (ops/topk.py), the compactions are stable sorts,
@@ -33,17 +37,20 @@ from rgrg_tpu_torch.ops import boxes as box_ops
 from rgrg_tpu_torch.ops.nms import nms_keep_mask
 from rgrg_tpu_torch.ops.roi_align import roi_align
 from rgrg_tpu_torch.ops.topk import stable_topk
+from rgrg_tpu_torch.train import assign
+from rgrg_tpu_torch.train import losses as L
 
 
 def filter_proposals(proposals: torch.Tensor, objectness: torch.Tensor,
-                     rpn: RPNConfig, image_size: int):
-    """Batched static-shape RPN filter: top-k by objectness -> clip ->
-    small-box mask -> NMS (one kernel launch for the batch on the card).
+                     rpn: RPNConfig, image_size: int, train: bool = False):
+    """Batched static-shape RPN filter: top-k by objectness (k =
+    rpn.pre_nms_top_n(train)) -> clip -> small-box mask -> NMS (one kernel
+    launch for the batch on the card).
 
     proposals [B, N, 4]; objectness [B, N] logits, both f32.
     Returns (boxes [B, K, 4] score-sorted, keep [B, K] bool, scores [B, K]).
     """
-    k = min(rpn.pre_nms_top_n_test, objectness.shape[-1])
+    k = min(rpn.pre_nms_top_n(train), objectness.shape[-1])
     scores, idx = stable_topk(objectness, k)
     boxes = torch.gather(proposals, 1, idx[..., None].expand(-1, -1, 4))
     boxes = box_ops.clip_boxes_to_image(boxes, image_size, image_size)
@@ -95,16 +102,25 @@ class RegionDetector(nn.Module):
             "anchors", torch.from_numpy(anchors_lib.grid_anchors(cfg.anchors).copy()
                                         ).to(device), persistent=False)
 
-    def rpn_proposals(self, feats: torch.Tensor):
-        """C5 [B, 16, 16, 2048] -> (boxes [B, K, 4], keep [B, K])."""
+    def rpn_forward(self, feats: torch.Tensor, train: bool = False):
+        """C5 [B, 16, 16, 2048] -> (boxes [B, K, 4], keep [B, K],
+        (objectness [B, N], deltas [B, N, 4], anchors [N, 4])): the proposals
+        (K = rpn.pre_nms_top_n(train)), decoded from the detached RPN
+        outputs, and the raw f32 outputs the RPN loss reads."""
         objectness, deltas = self.rpn_head(feats)
         # box math always in f32: bf16 (~2 px at coordinate 512) would
         # corrupt proposal geometry and NMS decisions
         objectness = objectness.to(torch.float32)
         deltas = deltas.to(torch.float32)
-        proposals = box_ops.decode_boxes(deltas, self.anchors)[..., 0, :]
-        boxes, keep, _ = filter_proposals(proposals, objectness, self.cfg.rpn,
-                                          self.cfg.image_size)
+        proposals = box_ops.decode_boxes(deltas.detach(), self.anchors)[..., 0, :]
+        boxes, keep, _ = filter_proposals(proposals, objectness.detach(),
+                                          self.cfg.rpn, self.cfg.image_size, train)
+        return boxes, keep, (objectness, deltas, self.anchors)
+
+    def rpn_proposals(self, feats: torch.Tensor):
+        """C5 [B, 16, 16, 2048] -> (boxes [B, K, 4], keep [B, K]) at the test
+        top-n."""
+        boxes, keep, _ = self.rpn_forward(feats)
         return boxes, keep
 
     def _pool(self, feats: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -138,6 +154,50 @@ class RegionDetector(nn.Module):
         pooled = self._pool(feats, boxes)
         return self.dim_reduction(pooled.mean(dim=(2, 3)).to(self.dtype)
                                   ).to(torch.float32)
+
+    def train_forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      rng: assign.Rng, bn_train: bool = True):
+        """Training forward: losses and per-region features. The RoI head
+        runs on the batch_size_per_image SAMPLED proposals (gt-augmented),
+        and top-1 per class, the region features and both classifiers come
+        from those samples.
+
+        bn_train=True: BatchNorm on batch statistics (updating the running
+        ones) and the training RPN top-n (2000). bn_train=False: the
+        eval-with-targets semantics of the validation losses: running
+        statistics, the test top-n (1000), sampling still on. The module's
+        own mode is restored afterwards.
+
+        gt_boxes [B, G, 4]; gt_labels [B, G] int (1..29); gt_valid [B, G];
+        rng: the sampling draws (train/assign.uniform): the RPN's positive
+        then negative keys, then the RoI head's.
+        Returns (losses dict, aux dict with region_features [B, 29, 1024],
+        class_detected [B, 29], selection_logits, abnormal_logits)."""
+        was_training = self.training
+        self.train(bn_train)
+        try:
+            feats = self.backbone(images)
+        finally:
+            self.train(was_training)
+        boxes, keep, (objectness, deltas, anchors) = self.rpn_forward(feats, bn_train)
+        gt_boxes = gt_boxes.to(torch.float32)
+        losses = L.rpn_loss(rng, objectness, deltas, anchors, gt_boxes, gt_valid, self.cfg)
+        samples = L.select_training_samples(rng, boxes, keep, gt_boxes, gt_labels,
+                                            gt_valid, self.cfg)
+        class_logits, box_regression, box_features = self.roi_forward(
+            feats, samples.proposals)
+        losses.update(L.fastrcnn_loss(class_logits, box_regression, samples))
+
+        sel = top1_per_class(class_logits, samples.sampled)
+        bidx = torch.arange(feats.shape[0], device=feats.device)[:, None]
+        top_features = box_features[bidx, sel["top_idx"]]
+        region_features = self.dim_reduction(top_features.to(self.dtype))
+        aux = {"region_features": region_features,
+               "class_detected": sel["class_detected"],
+               "selection_logits": self.selection_classifier(region_features),
+               "abnormal_logits": self.abnormal_classifier(region_features)}
+        return losses, aux
 
     def forward(self, images: torch.Tensor,
                 logit_threshold: float = -1.0) -> Dict[str, torch.Tensor]:

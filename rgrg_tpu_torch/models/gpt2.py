@@ -1,4 +1,5 @@
-"""GPT-2 decoder with pseudo self-attention: the KV-cached generation path.
+"""GPT-2 decoder with pseudo self-attention: the teacher-forced training
+forward (forward_full) and the KV-cached generation path.
 
 Plain functions over a parameter dict of tensors (the JAX package's tree,
 same keys and layouts):
@@ -19,6 +20,12 @@ once, after prefill, to per-layer head-leading buffers [H, B*K, 1+T, D]
 (cache_to_beam_layers) that decode_step_beam updates in place and reads
 through the ancestry table (ops/beam_attn.py, kernel K3 on the card).
 
+forward_full runs whole sequences with dropout on the embeddings, the
+attention weights and both residual branches (training), optionally
+checkpointing each block (torch.utils.checkpoint restores the RNG state, so
+a recomputed block draws the same dropout masks); with image_features=None
+it is vanilla GPT-2 (no image slot).
+
 quantize_decoder_weights turns each layer's four matmul kernels into
 weight-only per-channel int8; _dense multiplies by them in either layout
 (kernel K4, ops/dense_wint8.py, reads the "pallas" one on the card).
@@ -30,6 +37,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.ops.beam_attn import beam_attention
@@ -171,11 +179,19 @@ def _attn_scale(head_dim: int, dtype: torch.dtype) -> float:
     return torch.tensor(float(head_dim), dtype=dtype).sqrt().reciprocal().item()
 
 
+def _dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Training dropout (kept entries scaled by 1/(1-rate)); rate 0 is the
+    identity and draws nothing."""
+    return F.dropout(x, rate, training=True) if rate > 0 else x
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
-    """q [B,H,S,D] x k/v [B,H,T,D] with additive bias [.., S, T] (0 or -1e4)."""
+               bias: torch.Tensor, dropout_rate: float = 0.0) -> torch.Tensor:
+    """q [B,H,S,D] x k/v [B,H,T,D] with additive bias [.., S, T] (0 or -1e4);
+    dropout_rate > 0 drops attention weights after the softmax."""
     w = torch.einsum("bhsd,bhtd->bhst", q, k) * _attn_scale(v.shape[-1], q.dtype)
     w = torch.softmax(w + bias, dim=-1).to(v.dtype)
+    w = _dropout(w, dropout_rate)
     return torch.einsum("bhst,bhtd->bhsd", w, v)
 
 
@@ -183,6 +199,79 @@ def _positions_embed(params: Params, position_ids: torch.Tensor,
                      cfg: DecoderConfig) -> torch.Tensor:
     table = params["wte" if cfg.positions_from_wte else "wpe"]["embedding"]
     return table[position_ids]
+
+
+def forward_full(params: Params, input_ids: torch.Tensor,
+                 attention_mask: torch.Tensor, image_features: Optional[torch.Tensor],
+                 cfg: DecoderConfig, dropout: bool = False,
+                 remat: bool = False) -> torch.Tensor:
+    """Teacher-forced forward over whole sequences: input_ids /
+    attention_mask [B, S], image_features [B, F] raw region features (the
+    feature-space transform runs here; cast to the parameters' dtype) or
+    None for vanilla GPT-2. Returns lm logits [B, S, vocab].
+
+    dropout=True applies cfg's embd / attn / resid dropout rates from the
+    device's default RNG; remat=True checkpoints each block, so only its
+    input is kept for backward."""
+    b, s = input_ids.shape
+    wte = params["wte"]["embedding"]
+    dev = wte.device
+    img = None
+    if image_features is not None:
+        img = feature_transform(params, image_features.to(wte.dtype))[:, None, :]
+
+    x = wte[input_ids] + _positions_embed(
+        params, torch.arange(s, device=dev)[None, :], cfg)
+    if dropout:
+        x = _dropout(x, cfg.embd_dropout)
+
+    # bias [B, 1, S, (1+)S]: causal (the image column always visible) + padding
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    pad = attention_mask
+    if img is not None:
+        causal = torch.cat([torch.ones(s, 1, dtype=torch.bool, device=dev), causal], dim=1)
+        pad = torch.cat([torch.ones(b, 1, dtype=attention_mask.dtype, device=dev),
+                         attention_mask], dim=1)
+    bias = torch.where(causal, 0.0, MASK_VALUE).to(x.dtype)[None, None]
+    bias = bias + (1.0 - pad[:, None, None, :].to(x.dtype)) * MASK_VALUE
+    attn_rate = cfg.attn_dropout if dropout else 0.0
+    resid_rate = cfg.resid_dropout if dropout else 0.0
+    h, d = cfg.num_heads, cfg.head_dim
+
+    def block(x: torch.Tensor, bp: Params) -> torch.Tensor:
+        qkv = _dense(_layer_norm(x, bp["ln_1"], cfg.layer_norm_eps), bp["attn"]["c_attn"])
+        q, k, v = torch.split(qkv, cfg.hidden_dim, dim=-1)
+        if img is not None:
+            k = torch.cat([_dense(img, bp["attn"]["uk"]), k], dim=1)   # [B, 1+S, D]
+            v = torch.cat([_dense(img, bp["attn"]["uv"]), v], dim=1)
+        a = _attention(_split_heads(q, h, d), _split_heads(k, h, d),
+                       _split_heads(v, h, d), bias, attn_rate)
+        x = x + _dropout(_dense(_merge_heads(a), bp["attn"]["c_proj"]), resid_rate)
+        m = _layer_norm(x, bp["ln_2"], cfg.layer_norm_eps)
+        m = _dense(_gelu_new(_dense(m, bp["mlp"]["c_fc"])), bp["mlp"]["c_proj"])
+        return x + _dropout(m, resid_rate)
+
+    for i in range(cfg.num_layers):
+        if remat:
+            x = checkpoint(block, x, params[f"h_{i}"], use_reentrant=False)
+        else:
+            x = block(x, params[f"h_{i}"])
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return torch.matmul(x, wte.T)
+
+
+def language_model_loss(params: Params, input_ids: torch.Tensor,
+                        attention_mask: torch.Tensor,
+                        image_features: Optional[torch.Tensor],
+                        cfg: DecoderConfig) -> torch.Tensor:
+    """Shift-by-one CE with padding positions ignored, averaged over the
+    valid targets."""
+    logits = forward_full(params, input_ids, attention_mask, image_features, cfg)
+    logp = torch.log_softmax(logits[:, :-1, :].to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, input_ids[:, 1:, None].to(torch.int64))[..., 0]
+    valid = attention_mask[:, 1:].to(torch.bool)
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll) / torch.clamp(valid.sum(), min=1)
 
 
 def init_cache(batch: int, max_len: int, cfg: DecoderConfig,

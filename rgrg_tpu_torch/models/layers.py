@@ -2,9 +2,10 @@
 
 The detector's parameters stay f32 while its convs and dense layers run in
 the configured compute dtype (bf16 for serving): each layer casts its
-weights to the input's dtype at use. Eval BatchNorm works from running
-statistics in f32, y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and
-returns the input's dtype.
+weights to the input's dtype at use. BatchNorm normalises in f32,
+y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and returns the input's
+dtype: in eval mode from its running statistics, in train mode from the
+batch's (flax.linen.BatchNorm's semantics, momentum 0.9).
 """
 
 from __future__ import annotations
@@ -50,8 +51,16 @@ class Linear(nn.Linear):
         self.bias.zero_()
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over NCHW from running statistics."""
+class BatchNorm2d(nn.Module):
+    """BatchNorm over NCHW, computed in f32 (f64 for f64 input). Eval mode
+    (how the detector serves) normalises with the running statistics. Train
+    mode normalises with the batch's statistics over (N, H, W), as flax
+    computes them: mean and mean of squares, variance = max(0, E[x^2] -
+    E[x]^2) (biased), and moves the running statistics to 0.9 * running +
+    0.1 * batch, the variance biased too (F.batch_norm would store the
+    unbiased one)."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  device: Optional[torch.device] = None):
@@ -63,9 +72,19 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.to(torch.float32) - self.running_mean[:, None, None])
-             * mul[:, None, None] + self.bias[:, None, None])
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))   # f64 stays f64
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1.0 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1.0 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
     @torch.no_grad()

@@ -1,4 +1,8 @@
-"""ResNet-v1 backbone up to C5, 1-channel stem, eval BatchNorm.
+"""ResNet-v1 backbone up to C5, 1-channel stem.
+
+BatchNorm follows the module's mode: `.eval()` normalises with the running
+statistics (serving, evaluation), `.train()` with the batch's and updates
+the running statistics (models/layers.BatchNorm2d).
 
 torchvision structure (bottleneck with the stride on the 3x3 conv, BN eps
 1e-5, maxpool 3x3/2 pad 1 with -inf padding). The public layout is NHWC:
@@ -15,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rgrg_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d
+from rgrg_tpu_torch.models.layers import BatchNorm2d, Conv2d
 
 
 class Bottleneck(nn.Module):
@@ -28,14 +32,14 @@ class Bottleneck(nn.Module):
         out_ch = width * expansion
         kw = dict(bias=False, device=device)
         self.conv1 = Conv2d(in_ch, width, 1, **kw)
-        self.bn1 = FrozenBatchNorm2d(width, device=device)
+        self.bn1 = BatchNorm2d(width, device=device)
         self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, **kw)
-        self.bn2 = FrozenBatchNorm2d(width, device=device)
+        self.bn2 = BatchNorm2d(width, device=device)
         self.conv3 = Conv2d(width, out_ch, 1, **kw)
-        self.bn3 = FrozenBatchNorm2d(out_ch, device=device)
+        self.bn3 = BatchNorm2d(out_ch, device=device)
         if has_downsample:
             self.downsample_conv = Conv2d(in_ch, out_ch, 1, stride=stride, **kw)
-            self.downsample_bn = FrozenBatchNorm2d(out_ch, device=device)
+            self.downsample_bn = BatchNorm2d(out_ch, device=device)
         else:
             self.downsample_conv = None
 
@@ -60,7 +64,7 @@ class ResNetBackbone(nn.Module):
         self.dtype = dtype
         self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False,
                             device=device)
-        self.bn1 = FrozenBatchNorm2d(64, device=device)
+        self.bn1 = BatchNorm2d(64, device=device)
         self.block_names = []
         in_ch, width = 64, 64
         for stage, num_blocks in enumerate(stage_sizes):

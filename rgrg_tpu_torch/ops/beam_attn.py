@@ -187,7 +187,13 @@ def beam_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of kernel K3 (counted in `beam_attention.launches`) for H <= 32 heads
     of D <= 128 dims, planned by `plan`; the ancestry must hold beams
     0..K-1 (not checked on the card: that would cost a device read per
-    launch). Allocates only the output."""
+    launch). Allocates only the output. It has no backward: with grad
+    enabled, an input that requires grad raises rather than getting a
+    result cut off from the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, k_scale, v_scale)):
+        raise RuntimeError("beam_attention has no backward; call it under "
+                           "torch.no_grad() or with inputs that need no grad")
     _check(q, k, v, anc, slot, t0, k_scale, v_scale)
     if q.device.type == "cpu":
         return beam_attention_plain(q, k, v, anc, slot, scale=scale, t0=t0,

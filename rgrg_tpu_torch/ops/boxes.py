@@ -61,3 +61,45 @@ def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tenso
     ws = boxes[..., 2] - boxes[..., 0]
     hs = boxes[..., 3] - boxes[..., 1]
     return (ws >= min_size) & (hs >= min_size)
+
+
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+                 ) -> torch.Tensor:
+    """Inverse of decode: the regression targets [..., 4] that map
+    `proposals` onto `reference_boxes` (both [..., 4])."""
+    wx, wy, ww, wh = weights
+    ex_widths = proposals[..., 2] - proposals[..., 0]
+    ex_heights = proposals[..., 3] - proposals[..., 1]
+    ex_ctr_x = proposals[..., 0] + 0.5 * ex_widths
+    ex_ctr_y = proposals[..., 1] + 0.5 * ex_heights
+
+    gt_widths = reference_boxes[..., 2] - reference_boxes[..., 0]
+    gt_heights = reference_boxes[..., 3] - reference_boxes[..., 1]
+    gt_ctr_x = reference_boxes[..., 0] + 0.5 * gt_widths
+    gt_ctr_y = reference_boxes[..., 1] + 0.5 * gt_heights
+
+    dx = wx * (gt_ctr_x - ex_ctr_x) / ex_widths
+    dy = wy * (gt_ctr_y - ex_ctr_y) / ex_heights
+    dw = ww * torch.log(gt_widths / ex_widths)
+    dh = wh * torch.log(gt_heights / ex_heights)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU [..., N, M] of boxes1 [..., N, 4] and boxes2 [..., M, 4]
+    (leading dims broadcast): inter / ((area1 + area2) - inter), no epsilon.
+    The anchor matcher compares these for equality, so the operation order
+    is the JAX package's."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union

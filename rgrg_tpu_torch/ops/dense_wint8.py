@@ -119,7 +119,13 @@ def dense_wint8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     `dense_wint8.launches`) for any shape; all inputs must be contiguous.
     Allocates only the output. The decoder calls it 96 times a decode
     step, so the CUDA route reads each attribute once and reshapes only
-    inputs that are not 2-D."""
+    inputs that are not 2-D. It has no backward: with grad enabled, an
+    input that requires grad raises rather than getting a result cut off
+    from the graph."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or (bias is not None and bias.requires_grad)):
+        raise RuntimeError("dense_wint8 has no backward; call it under "
+                           "torch.no_grad() or with inputs that need no grad")
     _check(x, q, scale, bias)
     k, n = q.shape
     flat = x.dim() == 2

@@ -11,7 +11,14 @@ cells at extent-1 capped with zero upper weight).
 
 `roi_align` is the entry the detector calls: on a CPU tensor it runs the
 plain PyTorch version below, on a CUDA tensor it launches kernel K2
-(csrc/roi_align.cu) or raises.
+(csrc/roi_align.cu) or raises. On both devices it is one
+torch.autograd.Function: the output is linear in the features, and the
+feature gradient is the transposed fused contraction
+
+    dF[b] = W2[b]^T . G[b],   W2[b, (n, p, q), (h, w)] = Ay[b, n, p, h] * Ax[b, n, q, w]
+
+one batched matmul [B, H*W, N*P*P] x [B, N*P*P, C] (`roi_align_feature_grad`),
+deterministic (no atomics). Boxes get no gradient.
 
 A row of Ay or Ax has at most 2 samples x 2 cells = 4 nonzero weights.
 `roi_tap_tables` keeps only those, as the kernel does, and
@@ -70,11 +77,13 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor, *,
                     output_size: int = 8, spatial_scale: float = 1.0 / 32.0,
                     sampling_ratio: int = 2) -> torch.Tensor:
     """Plain PyTorch RoIAlign: features [B, H, W, C] (any float dtype, read
-    as f32), boxes [B, N, 4] -> [B, N, P, P, C] f32. Contracts H, then W."""
+    as f32, or f64 for f64 features), boxes [B, N, 4] -> [B, N, P, P, C] in
+    that dtype. Contracts H, then W."""
     _, h, w, _ = features.shape
     ay, ax = roi_align_weights(boxes, h, w, output_size, spatial_scale,
                                sampling_ratio)
-    f = features.to(torch.float32)
+    f = features.to(torch.promote_types(features.dtype, torch.float32))
+    ay, ax = ay.to(f.dtype), ax.to(f.dtype)
     tmp = torch.einsum("bnph,bhwc->bnpwc", ay, f)
     return torch.einsum("bnpwc,bnqw->bnpqc", tmp, ax)
 
@@ -140,20 +149,26 @@ def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:
         raise ValueError("features and boxes must be on one device")
 
 
-def roi_align(features: torch.Tensor, boxes: torch.Tensor, *,
-              output_size: int = 8, spatial_scale: float = 1.0 / 32.0,
-              sampling_ratio: int = 2) -> torch.Tensor:
-    """features [B, H, W, C], boxes [B, N, 4] f32 -> [B, N, P, P, C] f32.
-    CPU tensors: the plain version. CUDA tensors: one launch of kernel K2
-    (counted in `roi_align.launches`), which takes f32 or bf16 features on
-    the model's geometry (16x16 map, 8x8 bins, sampling 2)."""
-    _check(features, boxes)
-    if features.device.type == "cpu":
-        return roi_align_plain(features, boxes, output_size=output_size,
-                               spatial_scale=spatial_scale,
-                               sampling_ratio=sampling_ratio)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
+def roi_align_feature_grad(grad: torch.Tensor, boxes: torch.Tensor, height: int,
+                           width: int, *, output_size: int = 8,
+                           spatial_scale: float = 1.0 / 32.0,
+                           sampling_ratio: int = 2) -> torch.Tensor:
+    """The gradient of RoIAlign's output with respect to its features:
+    grad [B, N, P, P, C] (f32, or f64) -> dF [B, H, W, C] in grad's dtype,
+    as one batched matmul dF[b] = W2[b]^T . G[b] over the fused weights
+    W2 [B, N*P*P, H*W] of the boxes."""
+    bsz, n, p, _, c = grad.shape
+    ay, ax = roi_align_weights(boxes, height, width, output_size, spatial_scale,
+                               sampling_ratio)
+    w2 = (ay[:, :, :, None, :, None] * ax[:, :, None, :, None, :]).to(grad.dtype)
+    w2 = w2.reshape(bsz, n * p * p, height * width)
+    return torch.bmm(w2.transpose(1, 2), grad.reshape(bsz, n * p * p, c)
+                     ).reshape(bsz, height, width, c)
+
+
+def _launch(features: torch.Tensor, boxes: torch.Tensor, output_size: int,
+            spatial_scale: float, sampling_ratio: int) -> torch.Tensor:
+    """One launch of kernel K2 (counted in `roi_align.launches`)."""
     bsz, h, w, c = features.shape
     n = boxes.shape[1]
     if features.dtype not in (torch.float32, torch.bfloat16):
@@ -180,6 +195,51 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, *,
     kernels.check(lib, code, "roi_align")
     roi_align.launches += 1
     return out
+
+
+class RoIAlign(torch.autograd.Function):
+    """Forward: the plain version on the CPU, kernel K2 on the card.
+    Backward: `roi_align_feature_grad` on either device."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, output_size, spatial_scale, sampling_ratio):
+        ctx.save_for_backward(boxes)
+        ctx.geometry = (features.shape[1], features.shape[2], features.dtype,
+                        output_size, spatial_scale, sampling_ratio)
+        if features.device.type == "cpu":
+            return roi_align_plain(features, boxes, output_size=output_size,
+                                   spatial_scale=spatial_scale,
+                                   sampling_ratio=sampling_ratio)
+        if features.device.type != "cuda":
+            raise ValueError(f"unsupported device {features.device}")
+        return _launch(features, boxes, output_size, spatial_scale, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        h, w, dtype, output_size, spatial_scale, sampling_ratio = ctx.geometry
+        grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
+        d_features = roi_align_feature_grad(
+            grad, boxes, h, w, output_size=output_size,
+            spatial_scale=spatial_scale, sampling_ratio=sampling_ratio)
+        return d_features.to(dtype), None, None, None, None
+
+
+def roi_align(features: torch.Tensor, boxes: torch.Tensor, *,
+              output_size: int = 8, spatial_scale: float = 1.0 / 32.0,
+              sampling_ratio: int = 2) -> torch.Tensor:
+    """features [B, H, W, C], boxes [B, N, 4] f32 -> [B, N, P, P, C] f32,
+    differentiable in the features (`RoIAlign`). CPU tensors: the plain
+    version. CUDA tensors: one launch of kernel K2 (counted in
+    `roi_align.launches`; the backward launches none), which takes f32 or
+    bf16 features on the model's geometry (16x16 map, 8x8 bins, sampling 2).
+    Boxes must not require grad."""
+    _check(features, boxes)
+    if boxes.requires_grad:
+        raise ValueError("roi_align gives no gradient to its boxes: pass them "
+                         "detached")
+    return RoIAlign.apply(features, boxes, output_size, float(spatial_scale),
+                          sampling_ratio)
 
 
 roi_align.launches = 0

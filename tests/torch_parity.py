@@ -6,8 +6,9 @@ disagree by ~3e-6, so a discrete decision on such a tie may go either way.
 Parity checks therefore run on the first seeded input whose every decision
 clears that noise by ~10x (beam search: every score comparison it makes,
 `beam_score_margin`; a whole evaluation input: `image_with_margins`).
-Used by tests/test_torch_{detector,pipeline,beam,evaluator}.py and by
-chip_smoke.py's card-vs-CPU reference phases, which also share the
+Used by tests/test_torch_{detector,pipeline,beam,evaluator,train_model}.py
+and by chip_smoke.py's card-vs-CPU reference phases (`training_margins`
+for a training step's decisions), which also share the
 evaluation batches built here (`WORDS`, `eval_batches`); imports only
 numpy, torch and rgrg_tpu_torch.
 """
@@ -23,8 +24,10 @@ from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.decode import beam
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.models.detector import RegionDetector, top1_per_class
+from rgrg_tpu_torch.ops.boxes import box_iou
 from rgrg_tpu_torch.ops.nms import pairwise_iou
 from rgrg_tpu_torch.ops.topk import stable_topk
+from rgrg_tpu_torch.train import losses as train_losses
 
 # least margin of each discrete decision for a parity check between two f32
 # implementations (~10x their observed disagreement of ~3e-6)
@@ -61,6 +64,61 @@ def decision_margins(det: RegionDetector, images: torch.Tensor,
             "class": (top2[..., 0] - top2[..., 1])[keep].min().item(),
             "region": region_gap.min().item() if region_gap.numel() else 1.0,
             "selection": sel_gap.min().item() if sel_gap.numel() else 1.0}
+
+
+@torch.no_grad()
+def training_margins(det: RegionDetector, images: torch.Tensor, gt_boxes: torch.Tensor,
+                     gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                     roi_draws: Sequence[np.ndarray], bn_train: bool = True) -> dict:
+    """Smallest gap of every discrete decision of `det.train_forward` on a
+    batch, with the RoI sampling fed `roi_draws` (its positive then negative
+    keys): the objectness order over the top-k+1, IoU against the NMS
+    threshold, each proposal's IoU with each gt against the RoI matching
+    threshold and its best vs second gt, and the top-1-per-class choices over
+    the sampled proposals (best vs second class of a sampled row, best vs
+    second row of a detected region). The anchor matching of the RPN loss
+    sees only exact inputs and needs no margin. Running statistics are left
+    as they were."""
+    cfg = det.cfg
+    saved = {k: v.clone() for k, v in det.named_buffers()}
+    was_training = det.training
+    det.train(bn_train)
+    try:
+        feats = det.backbone(images)
+    finally:
+        det.train(was_training)
+        for k, v in det.named_buffers():
+            v.copy_(saved[k])
+    boxes, keep, (obj, _, _) = det.rpn_forward(feats, bn_train)
+    v, _ = stable_topk(obj, cfg.rpn.pre_nms_top_n(bn_train) + 1)
+    nms_gap = (pairwise_iou(boxes) - cfg.rpn.nms_thresh).abs().nan_to_num(1.0)
+    iou = box_iou(gt_boxes, boxes).masked_fill(~gt_valid[..., None], -1.0)   # [B, G, K]
+    live = gt_valid[..., None] & keep[:, None, :]
+    match_gap = (iou - cfg.roi.fg_iou_thresh).abs()[live]
+    best2 = iou.topk(2, dim=1).values                                      # [B, 2, K]
+    matched = (best2[:, 0] >= cfg.roi.fg_iou_thresh) & keep
+    order_gap = (best2[:, 0] - best2[:, 1])[matched]
+    samples = train_losses.select_training_samples(iter(roi_draws), boxes, keep, gt_boxes,
+                                                   gt_labels, gt_valid, cfg)
+    cls, _, _ = det.roi_forward(feats, samples.proposals)
+    probs = torch.softmax(cls, -1)[..., 1:]
+    top2 = probs.topk(2, dim=-1).values
+    sel = top1_per_class(cls, samples.sampled)
+    onehot = (torch.nn.functional.one_hot(probs.argmax(-1), probs.shape[-1])
+              * samples.sampled[..., None])
+    reg2 = (probs * onehot).transpose(1, 2).topk(2, dim=-1).values
+    region_gap = (reg2[..., 0] - reg2[..., 1])[sel["class_detected"]]
+
+    def least(t):
+        return t.min().item() if t.numel() else 1.0
+    return {"objectness": (v[:, :-1] - v[:, 1:]).min().item(), "iou": nms_gap.min().item(),
+            "match": least(match_gap), "match_order": least(order_gap),
+            "class": least((top2[..., 0] - top2[..., 1])[samples.sampled]),
+            "region": least(region_gap)}
+
+
+TRAINING_MARGINS = {"objectness": 3e-5, "iou": 1e-3, "match": 1e-3, "match_order": 1e-3,
+                    "class": 1e-4, "region": 1e-4}
 
 
 def has_parity_margins(det: RegionDetector, images: torch.Tensor) -> bool:
