@@ -112,6 +112,24 @@ Phases (any failed check raises and the script exits non-zero):
      a mini-step) and finite losses; one mini-step of each recipe
      profiled; the FLOP of a mini-step counted from the shapes and its
      share of the f32 peak.
+ 15. (a) K3 from slot 1 (t0 = 1, the no_image decode) against its plain
+     version at the beam shape (slots 2, 31) and the evaluation shape (256
+     lanes x 305 slots, slot 303), bf16 / f32 / int8, cold and warm;
+ 16. (b) no_image (vanilla GPT-2) beam 4: a small decoder card vs CPU
+     token for token, then GPT-2 Medium at full width (32 rows, max_length
+     60) with K3's counter at 24 per beam step;
+ 17. (c) sampling: decode_selected(do_sample=True, top_k=1) equals greedy
+     on one request's region features (GPT-2 Medium in f32), then
+     temperature 0.7 / top_p 0.9 timed on the bf16 serving weights;
+ 18. (d) the train CLI (`python -m rgrg_tpu_torch.train`'s main) in-process
+     at RGRGConfig(): split CSVs of 2048x2500 X-rays held in memory,
+     augmented by 4 host threads, 8 mini-steps, a validation, `best` and
+     `last`; host ms per augmented batch, ms per mini-step and images/s,
+     the idle share of one mini-step, K1 / K2 counters; then
+     ReportGenerator.from_checkpoint(<run_dir>/last) evaluates one val
+     batch at beam 4 through K1-K3;
+ 19. (e) CheXbert fine-tuning: a small labeler card vs CPU (losses 1e-4),
+     then ms per step at BERT-base width (batch 16 x 128 tokens).
 
 TF32 is off for the whole run (the f32 training numbers are without it). Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -372,15 +390,15 @@ def k3_inputs(np, torch, dev, kind, slot, seed=2, shape=K3_SHAPE):
 
 
 def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
-                    kinds=("bf16", "f32", "int8"), key="beam_attention"):
+                    kinds=("bf16", "f32", "int8"), key="beam_attention", t0=0):
     """K3 against its plain version at the beam path's shape, at the first,
     middle and last slot of a max_length-60 decode, with f32, bf16 and int8
-    caches (or at `shape`, `slots` and `kinds`); bit-identical on a
-    relaunch. Device time warm (one cache, relaunched: its named rows stay
-    in the L2 cache) and cold (each launch reads
-    another copy of the cache, cycling enough copies that the rows they
-    name fill twice the L2 cache, as the decode step finds every layer's
-    cache), beside the plain version and the gather + SDPA yardstick."""
+    caches (or at `shape`, `slots` and `kinds`; attending from slot `t0`,
+    1 for the no_image decode); bit-identical on a relaunch. Device time
+    warm (one cache, relaunched: its named rows stay in the L2 cache) and
+    cold (each launch reads another copy of the cache, cycling enough
+    copies that the rows they name fill twice the L2 cache, as the decode
+    step finds every layer's cache), beside the plain version and the gather + SDPA yardstick."""
     from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain, plan
     from rgrg_tpu_torch.ops.kernels import sm_count
     rows = {}
@@ -388,25 +406,27 @@ def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
     for slot in slots:
         for kind in kinds:
             q, k, v, anc, scales = k3_inputs(np, torch, dev, kind, slot, shape=shape)
-            got = beam_attention(q, k, v, anc, slot, scale=scale, **scales)
-            want = beam_attention_plain(q, k, v, anc, slot, scale=scale, **scales)
+            got = beam_attention(q, k, v, anc, slot, scale=scale, t0=t0, **scales)
+            want = beam_attention_plain(q, k, v, anc, slot, scale=scale, t0=t0, **scales)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             check(bool(torch.isfinite(got).all()), f"beam attention non-finite ({kind})")
             check(err <= K3_TOL[kind], f"beam attention kernel vs plain max abs err {err} "
                   f"({kind}, slot {slot}, tolerance {K3_TOL[kind]})")
-            check(torch.equal(beam_attention(q, k, v, anc, slot, scale=scale, **scales), got),
-                  f"beam attention differs on a relaunch ({kind}, slot {slot})")
+            check(torch.equal(beam_attention(q, k, v, anc, slot, scale=scale, t0=t0,
+                                             **scales), got),
+                  f"beam attention differs on a relaunch ({kind}, slot {slot}, t0 {t0})")
             # bound: each (cache lane, slot) row the ancestry names is read once
-            a = anc.cpu().numpy()[:, :, :slot + 1]
+            n_slots = slot + 1 - t0
+            a = anc.cpu().numpy()[:, :, t0:slot + 1]
             pairs = int(sum(len(np.unique(a[:, :, t][i])) for t in range(a.shape[2])
                             for i in range(a.shape[0])))
             bk, h, d = q.shape
             row_bytes = h * d * k.element_size() + (h * 4 if scales else 0)
             named = 2 * pairs * row_bytes
-            nbytes = (named + q.numel() * q.element_size() + bk * (slot + 1) * 4
+            nbytes = (named + q.numel() * q.element_size() + bk * n_slots * 4
                       + got.numel() * 4)
-            flops = 4 * bk * (slot + 1) * h * d
+            flops = 4 * bk * n_slots * h * d
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
             copies = max(3, 1 + -(-int(2 * L2_BYTES) // named))
             caches = itertools.cycle(
@@ -415,12 +435,13 @@ def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
 
             def cold():
                 kc, vc, sc = next(caches)
-                beam_attention(q, kc, vc, anc, slot, scale=scale, **sc)
+                beam_attention(q, kc, vc, anc, slot, scale=scale, t0=t0, **sc)
             ms = cuda_ms(torch, cold, 200)
             warm_ms = cuda_ms(torch, lambda: beam_attention(q, k, v, anc, slot, scale=scale,
-                                                            **scales), 200)
+                                                            t0=t0, **scales), 200)
             plain_ms = cuda_ms(torch, lambda: beam_attention_plain(q, k, v, anc, slot,
-                                                                   scale=scale, **scales), 10)
+                                                                   scale=scale, t0=t0,
+                                                                   **scales), 10)
             del caches
             # yardstick, used nowhere in the port: gather the named rows, then
             # PyTorch's fused attention (two calls; no single call does both)
@@ -428,10 +449,10 @@ def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
             if kind != "int8":
                 def gather_sdpa():
                     base = torch.arange(anc.shape[0], device=dev)[:, None, None] * anc.shape[1]
-                    lanes = (base + anc.long()).reshape(bk, -1)[:, :slot + 1]
-                    idx = lanes[None, :, :, None].expand(h, bk, slot + 1, d)
-                    kg = torch.gather(k[:, :, :slot + 1], 1, idx).transpose(0, 1)
-                    vg = torch.gather(v[:, :, :slot + 1], 1, idx).transpose(0, 1)
+                    lanes = (base + anc.long()).reshape(bk, -1)[:, t0:slot + 1]
+                    idx = lanes[None, :, :, None].expand(h, bk, n_slots, d)
+                    kg = torch.gather(k[:, :, t0:slot + 1], 1, idx).transpose(0, 1)
+                    vg = torch.gather(v[:, :, t0:slot + 1], 1, idx).transpose(0, 1)
                     return torch.nn.functional.scaled_dot_product_attention(
                         q[:, :, None], kg, vg, scale=scale)
                 lib = gather_sdpa()[:, :, 0].float()
@@ -445,8 +466,9 @@ def phase_beam_attn(np, torch, dev, result, shape=K3_SHAPE, slots=K3_SLOTS,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=nbytes, flops=flops, lane_slot_pairs=pairs, cold_copies=copies,
                        plan=p._asdict())
+            row["t0"] = t0
             rows[f"{kind} slot {slot}"] = row
-            log(f"K3 beam_attention {kind} slot {slot}: q {tuple(q.shape)} cache "
+            log(f"K3 beam_attention {kind} slot {slot} t0 {t0}: q {tuple(q.shape)} cache "
                 f"{tuple(k.shape)} max_abs_err {err:.3e}, relaunch bit-identical; kernel cold "
                 f"{ms:.4f} ms ({copies} caches cycled), warm {warm_ms:.4f} ms, plain "
                 f"{plain_ms:.3f} ms, gather+SDPA "
@@ -1379,37 +1401,13 @@ def write_chexbert_vocab(path):
 
 def chexbert_labeler(torch, cfg, vocab_path, device, seed):
     """The evaluate CLI's labeler (reports -> [14, N] labels) over a
-    CheXbert of `cfg`'s widths with seeded random weights (N(0, 0.02) as
-    BERT initialises, heads N(0, 1) so that their argmax is decisive),
-    converted by convert_chexbert; the labeler's .logits(reports) gives the
-    14 heads' logits."""
+    CheXbert of `cfg`'s widths with seeded random weights
+    (chexbert_state_dict), converted by convert_chexbert; the labeler's
+    .logits(reports) gives the 14 heads' logits."""
     from rgrg_tpu_torch.eval.chexbert import chexbert_logits, convert_chexbert
     from rgrg_tpu_torch.evaluate import chexbert_labeler as cli_labeler
     from rgrg_tpu_torch.text.wordpiece import WordPieceTokenizer
-    g = torch.Generator().manual_seed(seed)
-    h, inter = cfg.hidden, cfg.intermediate
-
-    def rand(*shape, std=0.02):
-        return torch.randn(shape, generator=g) * std
-
-    e = "bert.embeddings"
-    sd = {f"{e}.word_embeddings.weight": rand(cfg.vocab_size, h),
-          f"{e}.position_embeddings.weight": rand(cfg.max_positions, h),
-          f"{e}.token_type_embeddings.weight": rand(cfg.type_vocab, h),
-          f"{e}.LayerNorm.weight": torch.ones(h), f"{e}.LayerNorm.bias": torch.zeros(h)}
-    for i in range(cfg.layers):
-        p = f"bert.encoder.layer.{i}"
-        for name, (o, n) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
-                             ("attention.self.value", (h, h)),
-                             ("attention.output.dense", (h, h)),
-                             ("intermediate.dense", (inter, h)), ("output.dense", (h, inter))):
-            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = rand(o, n), torch.zeros(o)
-        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
-            sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(h), torch.zeros(h)
-    for j in range(14):
-        n = 2 if j == 13 else 4
-        sd[f"linear_heads.{j}.weight"] = rand(n, h, std=1.0)
-        sd[f"linear_heads.{j}.bias"] = rand(n, std=0.5)
+    sd = chexbert_state_dict(torch, cfg, seed)
     params = convert_chexbert(sd, device=device)
     label = cli_labeler(params, vocab_path, cfg)
     wp = WordPieceTokenizer.from_vocab_file(vocab_path)
@@ -2312,6 +2310,410 @@ def phase_train_full_width(np, torch, dev, result):
     return counted
 
 
+# ------------------------------------------------------------------ slice 10
+
+K3_T0_SLOTS = (2, 31)       # the no_image beam attends from slot 1 (t0 = 1)
+K3_T0_LONG_SLOTS = (303,)
+NO_IMAGE_ITEMS = 32         # vanilla GPT-2 beam 4: 128 lanes
+SAMPLE_TEMPERATURE, SAMPLE_TOP_P = 0.7, 0.9
+CLI_STEPS = 8               # 2 updates at accumulation 4
+CLI_IMAGES = 32             # distinct in-memory X-rays the split rows cycle over
+CLI_WORKERS = 4
+CHEXBERT_BATCH, CHEXBERT_TOKENS = 16, 128
+
+
+def phase_no_image(np, torch, dev, result, gen, cfg):
+    """(b) vanilla GPT-2 beam 4 (no image features; every layer's K3 launch
+    at t0 = 1): a small decoder card vs CPU, token for token, on weights
+    whose beam decisions clear both devices' f32 disagreement; then GPT-2
+    Medium at full width (the main path's bf16 weights), 32 rows, max_length
+    60, with K3's launch counter at 24 per beam step. Returns K3's
+    launches."""
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.models import gpt2
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from tests.torch_parity import beam_score_margin
+    dcfg = small_config().decoder
+    for seed in range(16):
+        p_cpu = _tree_map(gpt2.init_decoder_params(torch.Generator().manual_seed(seed), dcfg),
+                          lambda t: t * 8.0)
+        margin = beam_score_margin(p_cpu, None, dcfg, 16, BEAMS, False, batch=1)
+        if margin >= 1e-4:
+            break
+    check(margin >= 1e-4, "no small decoder with beam decision margins")
+    p_gpu = _tree_map(p_cpu, lambda t: t.to(dev))
+    kw = dict(max_length=16, num_beams=BEAMS, no_image=True, batch=3)
+    want = beam_generate(p_cpu, None, dcfg, **kw)
+    launches0 = beam_attention.launches
+    got = beam_generate(p_gpu, None, dcfg, **kw)
+    check(beam_attention.launches > launches0, "the small no_image beam skipped K3")
+    check(torch.equal(got.cpu(), want), "no_image beam: card and CPU ids differ")
+    check(len({tuple(r) for r in want.tolist()}) == 1, "no_image rows differ")
+
+    dec = gen.params["decoder"]
+    beam_attention.launches, beam_generate.steps = 0, 0
+    ids, ms = timed(torch, lambda: beam_generate(
+        dec, None, cfg.decoder, max_length=MAX_LENGTH, num_beams=BEAMS, no_image=True,
+        batch=NO_IMAGE_ITEMS), reps=2)
+    launches, steps = beam_attention.launches, beam_generate.steps
+    check(tuple(ids.shape) == (NO_IMAGE_ITEMS, MAX_LENGTH)
+          and int(ids.min()) >= 0 and int(ids.max()) < cfg.decoder.vocab_size,
+          "no_image full width: ids")
+    check(steps > 0 and launches == cfg.decoder.num_layers * steps,
+          f"no_image full width: K3 launches {launches} != 24 x {steps} beam steps")
+    log(f"no_image beam {BEAMS} (vanilla GPT-2): small decoder card == CPU (margin "
+        f"{margin:.2e}, seed {seed}); GPT-2 Medium bf16, {NO_IMAGE_ITEMS} rows, max_length "
+        f"{MAX_LENGTH}: {ms:.1f} ms (2 runs, {steps} beam steps, "
+        f"{ms / (steps / 2):.2f} ms a step), K3 launches {launches} [{result['card']}]")
+    result["no_image"] = dict(ms=ms, beam_steps=steps, k3_launches=launches,
+                              small_margin=margin, small_seed=seed)
+    return launches
+
+
+def phase_sampling(np, torch, dev, result, gen, cfg):
+    """(c) sampling at full width on one request of 8 X-rays:
+    decode_selected(do_sample=True, top_k=1) equals greedy on the same
+    region features (GPT-2 Medium in f32, whose greedy path has no exact
+    top-2 tie: checked); then temperature 0.7, top_p 0.9 on the serving
+    weights (bf16), detect + decode timed beside greedy's."""
+    from tests.torch_parity import greedy_logit_margin
+    from rgrg_tpu_torch.decode.sample import sample_generate
+    model = gen.model
+    images = list(np.random.default_rng(31).integers(0, 256, (BATCH, *RAW_SHAPE),
+                                                     dtype=np.uint8))
+    x = gen.preprocess(images)
+    det = model.detect(gen.params, x)
+    sel = det["selected_regions"]
+    n = int(sel.sum())
+    check(n > 0, "sampling: no region selected")
+    budget = model.budget_for(n, BATCH)
+    dec32 = _tree_map(gen.params["decoder"], lambda t: t.float())
+    p32 = {"detector": gen.params["detector"], "decoder": dec32}
+    feats32 = det["region_features"].float()
+    margin = greedy_logit_margin(dec32, feats32[sel], cfg.decoder, MAX_LENGTH)
+    check(margin > 0, f"sampling: an exact greedy tie (margin {margin})")
+    g = torch.Generator(device=dev).manual_seed(1)
+    sampled, _ = model.decode_selected(p32, feats32, sel, budget, MAX_LENGTH, do_sample=True,
+                                       top_k=1, sample_generator=g)
+    greedy, _ = model.decode_selected(p32, feats32, sel, budget, MAX_LENGTH)
+    check(torch.equal(sampled, greedy), "sampling with top_k=1 differs from greedy")
+    del dec32, p32, feats32
+    torch.cuda.empty_cache()
+
+    def request(**kw):
+        d = model.detect(gen.params, x)
+        return model.decode_selected(gen.params, d["region_features"], d["selected_regions"],
+                                     budget, MAX_LENGTH, **kw)[0]
+    steps0 = sample_generate.steps
+    out, sample_ms = timed(torch, lambda: request(
+        do_sample=True, temperature=SAMPLE_TEMPERATURE, top_p=SAMPLE_TOP_P,
+        sample_generator=torch.Generator(device=dev).manual_seed(2)))
+    steps = (sample_generate.steps - steps0) // 3
+    _, greedy_ms = timed(torch, request)
+    valid = out[sel]
+    check(bool((valid[:, 0] == cfg.decoder.bos_token_id).all())
+          and int(valid.min()) >= 0 and int(valid.max()) < cfg.decoder.vocab_size,
+          "sampled ids out of range")
+    log(f"sampling: {n} regions of {BATCH} X-rays, top_k=1 == greedy (f32 GPT-2 Medium, "
+        f"greedy margin {margin:.2e}); temperature {SAMPLE_TEMPERATURE} top_p {SAMPLE_TOP_P} "
+        f"(bf16): detect + decode {sample_ms:.1f} ms a request = "
+        f"{BATCH / sample_ms * 1e3:.2f} reports/s ({steps} decode steps), greedy "
+        f"{greedy_ms:.1f} ms [{result['card']}]")
+    result["sampling"] = dict(regions=n, greedy_margin=margin, ms=sample_ms,
+                              reports_per_s=BATCH / sample_ms * 1e3, decode_steps=steps,
+                              greedy_ms=greedy_ms)
+
+
+def write_tokenizer_dir(tok, path):
+    """vocab.json and merges.txt of a GPT2Tokenizer, for --tokenizer-dir."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(tok.encoder, f)
+    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return path
+
+
+def write_split_csv(np, path, n, n_images, raw_shape, seed):
+    """A split csv of `n` rows in the ETL's schema over "mem://<i>" images
+    (i cycling over n_images): all 29 regions with a box, phrases of report
+    words for ~60% of them."""
+    import csv
+    from tests.torch_parity import WORDS
+    rng = np.random.default_rng(seed)
+    words = [w.lower() for w in WORDS if w != "."]
+    h, w = raw_shape
+    rows = []
+    for i in range(n):
+        xy = rng.uniform(0, [w * 0.8, h * 0.8], (29, 2))
+        wh = rng.uniform(40, [w * 0.4, h * 0.4], (29, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, [w, h])], -1).round(1)
+        phrases = [" ".join(rng.choice(words, rng.integers(3, 9))).capitalize() + "."
+                   if rng.uniform() < 0.6 else "" for _ in range(29)]
+        rows.append({"mimic_image_file_path": f"mem://{i % n_images}",
+                     "bbox_coordinates": str(boxes.tolist()),
+                     "bbox_labels": str(list(range(1, 30))), "bbox_phrases": str(phrases),
+                     "bbox_phrase_exists": str([bool(p) for p in phrases]),
+                     "bbox_is_abnormal": str([bool(rng.uniform() < 0.3) for _ in phrases]),
+                     "reference_report": " ".join(p for p in phrases if p)})
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return path
+
+
+def phase_train_cli(np, torch, dev, result):
+    """(d) `python -m rgrg_tpu_torch.train`'s main in-process at RGRGConfig()
+    (validation every 8 mini-steps instead of 2400): stage 3 from split
+    CSVs of synthetic 2048x2500 uint8 X-rays held in memory (the card's
+    machine has no cv2), augmented on the host by CLI_WORKERS threads, 8
+    mini-steps (2 updates), a validation, `best` and `last`. Host ms per
+    augmented batch of 16, ms per mini-step (the step, and wall including
+    the wait for data), images/s, one mini-step profiled (idle share against
+    the CLI's wall per mini-step), K1 / K2 launches. Then
+    ReportGenerator.from_checkpoint(<run_dir>/last) and evaluate_model on
+    one val batch at beam 4, max_length 60, through K1-K3. Returns the
+    launches of these runs."""
+    import dataclasses
+    import shutil
+    import rgrg_tpu_torch.train.__main__ as cli
+    from rgrg_tpu_torch.core.config import RGRGConfig
+    from rgrg_tpu_torch.data.dataset import RGRGDataset, read_split_csv
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.eval.evaluator import evaluate_model
+    from rgrg_tpu_torch.inference import ReportGenerator
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.train import trainer
+
+    base = RGRGConfig()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, evaluate_every_k_batches=CLI_STEPS))
+    mcfg, tcfg = cfg.model, cfg.train
+    b = tcfg.batch_size
+    work = os.path.join(ROOT, "build", "smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tok = report_tokenizer(mcfg.decoder.vocab_size, mcfg.decoder.eos_token_id, byte_level=True)
+    tok_dir = write_tokenizer_dir(tok, os.path.join(work, "tokenizer"))
+    rng = np.random.default_rng(41)
+    arrays = [rng.integers(0, 256, RAW_SHAPE, dtype=np.uint8) for _ in range(CLI_IMAGES)]
+    train_csv = write_split_csv(np, os.path.join(work, "train.csv"), CLI_STEPS * b,
+                                CLI_IMAGES, RAW_SHAPE, seed=42)
+    val_csv = write_split_csv(np, os.path.join(work, "val.csv"), max(b, BATCH), CLI_IMAGES,
+                              RAW_SHAPE, seed=43)
+    run_dir = os.path.join(work, "run")
+    out = {}
+    with images_in_memory(arrays):
+        # the host data path alone: batches of 16 augmented samples
+        ds = RGRGDataset(read_split_csv(train_csv), tok, train=True)
+        for workers in (0, CLI_WORKERS):
+            it = ds.batches(b, shuffle=True, workers=workers)
+            t = time.perf_counter()
+            first = next(it)
+            out[f"host_ms_per_batch_workers_{workers}"] = (time.perf_counter() - t) * 1e3
+            it.close()
+        check(first["images"].shape == (b, 512, 512, 1)
+              and first["input_ids"].shape == (b, 29, TRAIN_SEQ), "augmented batch")
+
+        marks = []
+        make_step = trainer.make_train_step
+
+        def timed_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run(state, batch, rng):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, losses = step(state, batch, rng)
+                torch.cuda.synchronize()
+                marks.append((t, time.perf_counter(), losses))
+                return state, losses
+            return run
+
+        trainer.make_train_step = timed_step
+        nms_keep_mask.launches = roi_align.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            state = cli.main(["--stage", "3", "--train-csv", train_csv, "--val-csv", val_csv,
+                              "--tokenizer-dir", tok_dir, "--run-dir", run_dir,
+                              "--max-steps", str(CLI_STEPS), "--workers", str(CLI_WORKERS),
+                              "--device", dev.type],
+                             cfg=cfg)
+        finally:
+            trainer.make_train_step = make_step
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches}
+        steps = len(marks)
+        chunks = -(-mcfg.detector.roi.batch_size_per_image // mcfg.detector.roi.proposal_chunk)
+        check(state.step == CLI_STEPS == steps and state.opt_state.mini_step == 0,
+              f"train CLI: {steps} mini-steps")
+        check(counts["nms"] > steps and counts["roi_align"] > chunks * steps,
+              f"train CLI: launches {counts} (with a validation)")
+        check(all(bool(torch.isfinite(v).all()) for *_, ls in marks for v in ls.values()),
+              "train CLI: a loss is not finite")
+        for name in ("last", "best"):
+            check(os.path.isfile(os.path.join(run_dir, name, "train_state.pt")),
+                  f"train CLI: no {name} checkpoint")
+        recs = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+        val = [r["val/loss"] for r in recs if "val/loss" in r]
+        check(len(val) == 1 and np.isfinite(val[0]), f"train CLI: validation {val}")
+        step_ms = [(e - s) * 1e3 for s, e, _ in marks]
+        wall_ms = [(marks[i + 1][0] - marks[i][0]) * 1e3 for i in range(steps - 1)]
+        wait_ms = [(marks[i + 1][0] - marks[i][1]) * 1e3 for i in range(steps - 1)]
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        steady_step, steady_wall = med(step_ms[1:]), med(wall_ms[1:])
+        out.update(step_ms=step_ms, wall_ms_per_mini_step=wall_ms, data_wait_ms=wait_ms,
+                   steady_step_ms=steady_step, steady_wall_ms=steady_wall,
+                   images_per_s=b / steady_wall * 1e3, total_s=total_s, launches=counts,
+                   val_loss=val[0], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses={k: float(v) for k, v in marks[-1][2].items()})
+        log(f"train CLI (python -m rgrg_tpu_torch.train, stage 3, RGRGConfig(), {CLI_WORKERS} "
+            f"workers): host ms per augmented batch of {b} "
+            f"{out['host_ms_per_batch_workers_0']:.0f} (0 workers) / "
+            f"{out[f'host_ms_per_batch_workers_{CLI_WORKERS}']:.0f} ({CLI_WORKERS}); "
+            f"mini-step ms {['%.0f' % t for t in step_ms]}, wall per mini-step "
+            f"{['%.0f' % t for t in wall_ms]} (waiting for data "
+            f"{['%.0f' % t for t in wait_ms]}); median step {steady_step:.1f} ms, wall "
+            f"{steady_wall:.1f} ms = {out['images_per_s']:.1f} images/s; val loss "
+            f"{val[0]:.4f}; launches {counts}; peak {out['peak_gb']:.1f} GB; whole CLI "
+            f"{total_s:.1f} s [{result['card']}]")
+        # one mini-step profiled on a batch the dataset built: the idle share
+        # against the CLI's wall time per mini-step
+        step_fn = make_step(RGRG(mcfg), tcfg, stage=3, lm_budget=TRAIN_LM_BUDGET)
+        g = torch.Generator(device=dev).manual_seed(0)
+        out["profile"] = profiled(torch, lambda: step_fn(state, first, g), steady_wall,
+                                  "train CLI profile, one mini-step", "mini-step")
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+        val_batch = next(RGRGDataset(read_split_csv(val_csv), tok).batches(BATCH))
+        gen = ReportGenerator.from_checkpoint(os.path.join(run_dir, "last"), tok_dir, cfg=mcfg,
+                                              device=dev, similarity_fn=None)
+        shutil.rmtree(work)       # two 4.5 GB training states
+        nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+        beam_generate.steps = 0
+        scores, eval_ms = timed(torch, lambda: evaluate_model(
+            gen.model, gen.params, [val_batch], gen.tokenizer, num_beams=BEAMS,
+            max_length=MAX_LENGTH, similarity_fn=None), reps=1)
+        eval_counts = {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+                       "beam_attention": beam_attention.launches,
+                       "beam_steps": beam_generate.steps}
+    test_chunks = -(-mcfg.detector.rpn.pre_nms_top_n_test // mcfg.detector.roi.proposal_chunk)
+    check(eval_counts["nms"] == 1 and eval_counts["roi_align"] == test_chunks
+          and eval_counts["beam_steps"] > 0
+          and eval_counts["beam_attention"] == mcfg.decoder.num_layers * eval_counts["beam_steps"],
+          f"evaluation of the trained checkpoint: launches {eval_counts}")
+    lg = scores["language_generation"]
+    check(lg["language_images"] == BATCH and "meteor" in scores.get("sentence", {}),
+          "evaluation of the trained checkpoint: scores")
+    log(f"train CLI checkpoint: from_checkpoint(<run_dir>/last) + evaluate_model on one val "
+        f"batch of {BATCH}, beam {BEAMS} max_length {MAX_LENGTH}: {eval_ms:.0f} ms, "
+        f"launches {eval_counts}, IoU {scores['object_detector']['avg_iou']:.4f}, "
+        f"sentence METEOR {scores['sentence']['meteor']:.4f} [{result['card']}]")
+    out.update(eval_ms=eval_ms, eval_launches=eval_counts)
+    result["train_cli"] = out
+    del gen
+    torch.cuda.empty_cache()
+    return {"nms": counts["nms"] + eval_counts["nms"],
+            "roi_align": counts["roi_align"] + eval_counts["roi_align"],
+            "beam_attention": eval_counts["beam_attention"]}
+
+
+def chexbert_state_dict(torch, cfg, seed):
+    """A CheXbert state dict of `cfg`'s widths with seeded random weights
+    (N(0, 0.02) as BERT initialises, heads N(0, 1) so that their argmax is
+    decisive)."""
+    g = torch.Generator().manual_seed(seed)
+    h, inter = cfg.hidden, cfg.intermediate
+
+    def rand(*shape, std=0.02):
+        return torch.randn(shape, generator=g) * std
+
+    e = "bert.embeddings"
+    sd = {f"{e}.word_embeddings.weight": rand(cfg.vocab_size, h),
+          f"{e}.position_embeddings.weight": rand(cfg.max_positions, h),
+          f"{e}.token_type_embeddings.weight": rand(cfg.type_vocab, h),
+          f"{e}.LayerNorm.weight": torch.ones(h), f"{e}.LayerNorm.bias": torch.zeros(h)}
+    for i in range(cfg.layers):
+        p = f"bert.encoder.layer.{i}"
+        for name, (o, n) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (inter, h)), ("output.dense", (h, inter))):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = rand(o, n), torch.zeros(o)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(h), torch.zeros(h)
+    for j in range(14):
+        n = 2 if j == 13 else 4
+        sd[f"linear_heads.{j}.weight"] = rand(n, h, std=1.0)
+        sd[f"linear_heads.{j}.bias"] = rand(n, std=0.5)
+    return sd
+
+
+def chexbert_batches(np, cfg, n, b, s, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, cfg.vocab_size, (b, s))
+        mask = (np.arange(s)[None] < rng.integers(s // 2, s + 1, (b, 1))).astype(np.float32)
+        labels = np.concatenate([rng.integers(0, 4, (13, b)), rng.integers(0, 2, (1, b))])
+        out.append((ids, mask, labels))
+    return out
+
+
+def phase_chexbert_train(np, torch, dev, result):
+    """(e) CheXbert fine-tuning (eval/chexbert_train.py, Adam lr 2e-5): a
+    2-layer 64-wide labeler card vs CPU over 3 steps (losses within 1e-4),
+    then ms per step at BERT-base width (768 x 12 layers) on batches of 16
+    reports of 128 tokens (f32, TF32 off)."""
+    from rgrg_tpu_torch.eval.chexbert import BertConfig, convert_chexbert
+    from rgrg_tpu_torch.eval.chexbert_train import (make_train_step, parameters,
+                                                    train_chexbert)
+    small = BertConfig(vocab_size=64, hidden=64, layers=2, heads=4, intermediate=128,
+                       max_positions=64)
+    sd = chexbert_state_dict(torch, small, seed=5)
+    batches = chexbert_batches(np, small, 3, 8, 24, seed=6)
+    _, cpu_losses = train_chexbert(convert_chexbert(sd, device="cpu"), batches, cfg=small)
+    _, gpu_losses = train_chexbert(convert_chexbert(sd, device=dev), batches, cfg=small)
+    err = max(abs(a - c) for a, c in zip(cpu_losses, gpu_losses))
+    check(err <= 1e-4 and all(np.isfinite(cpu_losses)), f"CheXbert train card vs CPU {err}")
+
+    cfg = BertConfig()
+    params = convert_chexbert(chexbert_state_dict(torch, cfg, seed=7), device=dev)
+    leaves = parameters(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    step = make_train_step(params, torch.optim.Adam(leaves, lr=2e-5), cfg)
+    data = chexbert_batches(np, cfg, 6, CHEXBERT_BATCH, CHEXBERT_TOKENS, seed=8)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(*batch)) for batch in data[:2]]      # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses += [float(step(*batch)) for batch in data[2:]]
+    ms = (time.perf_counter() - t) * 1e3 / (len(data) - 2)
+    check(all(np.isfinite(losses)), "CheXbert BERT-base: a loss is not finite")
+    n_params = sum(t.numel() for t in leaves)
+    flops = 6 * n_params * CHEXBERT_BATCH * CHEXBERT_TOKENS
+    log(f"CheXbert fine-tuning: small labeler card == CPU (max loss diff {err:.2e} over 3 "
+        f"steps); BERT-base ({n_params / 1e6:.1f} M params) batch {CHEXBERT_BATCH} x "
+        f"{CHEXBERT_TOKENS} tokens: {ms:.1f} ms a step (~{flops / 1e12:.2f} TFLOP from "
+        f"6 x params x tokens = {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, losses "
+        f"{[round(x, 3) for x in losses]} [{result['card']}]")
+    result["chexbert_train"] = dict(card_vs_cpu_loss_diff=err, ms_per_step=ms,
+                                    params_m=n_params / 1e6, flops_per_step=flops,
+                                    losses=losses)
+    del params, leaves, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2353,6 +2755,9 @@ def main() -> int:
     phase_beam_attn(np, torch, dev, result)
     phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_LONG_SLOTS,
                     kinds=("bf16", "f32"), key="beam_attention_long")
+    phase_beam_attn(np, torch, dev, result, slots=K3_T0_SLOTS, key="beam_attention_t0", t0=1)
+    phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_T0_LONG_SLOTS,
+                    key="beam_attention_long_t0", t0=1)
     phase_dense_wint8(np, torch, dev, result)
     distilbert = phase_soft_dedup(np, torch, dev, result)
     with distilbert_dir(distilbert):
@@ -2366,29 +2771,37 @@ def main() -> int:
     with distilbert_dir(distilbert):
         phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
         phase_eval_full_width(np, torch, dev, result, gen, cfg)
+    no_image_launches = phase_no_image(np, torch, dev, result, gen, cfg)
+    phase_sampling(np, torch, dev, result, gen, cfg)
     del gen
     torch.cuda.empty_cache()
     train_launches = phase_train_full_width(np, torch, dev, result)
+    cli_launches = phase_train_cli(np, torch, dev, result)
+    phase_chexbert_train(np, torch, dev, result)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]
     k1t, k2t = result["nms_train"]["N=2000"], result["roi_align_train"]["f32"]
     k3 = result["beam_attention"]["bf16 slot 31"]
+    k3t0, k3t0_long = (result["beam_attention_t0"]["bf16 slot 31"],
+                       result["beam_attention_long_t0"]["bf16 slot 303"])
     kernels_line = {"kernels": [
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
          "replaces": "rgrg_tpu/ops/nms_pallas.py:52",
-         "launches": launches["nms"] + train_launches["nms"],
+         "launches": launches["nms"] + train_launches["nms"] + cli_launches["nms"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
          "train_ms": k1t["ms"], "train_bound_ms": k1t["bound_ms"],
          "shape": "B=8 x N=1000 (serving); train_*: B=16 x N=2000; launches: the "
-                  "beam-4 serving requests plus the full-width training runs"},
+                  "beam-4 serving requests, the full-width training runs, the train CLI "
+                  "and the evaluation of its checkpoint"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
-         "launches": launches["roi_align"] + train_launches["roi_align"],
+         "launches": launches["roi_align"] + train_launches["roi_align"]
+                     + cli_launches["roi_align"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -2397,15 +2810,23 @@ def main() -> int:
          "train_backward_bound_ms": k2t["backward_bound_ms"],
          "shape": "B=8 x 256 RoIs, bf16 features (serving); train_*: B=16 x 256 RoIs, "
                   "f32, the backward a torch.bmm over the fused weights; launches: the "
-                  "beam-4 serving requests plus the full-width training runs"},
+                  "beam-4 serving requests, the full-width training runs, the train CLI "
+                  "and the evaluation of its checkpoint"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
-         "launches": launches["beam_attention"], "max_abs_err": k3["max_abs_err"],
+         "launches": launches["beam_attention"] + no_image_launches
+                     + cli_launches["beam_attention"],
+         "max_abs_err": max(k3["max_abs_err"], k3t0["max_abs_err"]),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "warm_ms": k3["warm_ms"],
+         "t0_ms": k3t0["ms"], "t0_bound_ms": k3t0["bound_ms"],
+         "t0_long_ms": k3t0_long["ms"], "t0_long_bound_ms": k3t0_long["bound_ms"],
          "shape": "384 lanes (96 items x 4 beams), 16 heads x 64 dims, slot 31, bf16 "
-                  "cache; ms cold (caches cycled past the L2), warm_ms relaunched on one"},
+                  "cache; ms cold (caches cycled past the L2), warm_ms relaunched on one; "
+                  "t0_*: from slot 1 (the no_image decode), slot 31, and 256 lanes x 305 "
+                  "slots at slot 303; launches: the beam-4 serving requests, the no_image "
+                  "beam and the evaluation of the train CLI's checkpoint"},
         {"name": "dense_wint8", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
          "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",

@@ -62,12 +62,17 @@ def _copy(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
 
 
 @torch.no_grad()
-def load_detector_(detector: RegionDetector, variables: Mapping[str, Any]) -> None:
+def load_detector_(detector: RegionDetector, variables: Mapping[str, Any],
+                   strict: bool = True) -> None:
     """Copy the flax detector variables {"params", "batch_stats"} into
-    `detector` in place. Every parameter and statistic must be consumed."""
+    `detector` in place. Every parameter and statistic must be consumed.
+    strict=False lets a top-level module the variables lack (a stage-1
+    checkpoint's classifiers) keep its values."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     used = set()
     for name, m in detector.named_modules():
+        if not strict and name and name.split(".")[0] not in params:
+            continue
         if isinstance(m, Conv2d):
             p = _subtree(params, name)
             _copy(m.weight, _tensor(p["kernel"]).permute(3, 2, 0, 1), name)

@@ -18,7 +18,7 @@ Pure numpy: pass `state_dict_to_numpy(torch.load(...))`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
@@ -82,13 +82,14 @@ def sequential_backbone_to_named(sd: Mapping[str, np.ndarray]) -> Dict[str, np.n
     return out
 
 
-def convert_resnet_backbone(sd: Mapping[str, np.ndarray]):
-    """torchvision-named ResNet-50 keys (conv1, bn1, layerL.B.*) ->
+def convert_resnet_backbone(sd: Mapping[str, np.ndarray], stage_sizes=RESNET50_STAGES):
+    """torchvision-named ResNet keys (conv1, bn1, layerL.B.*) with
+    `stage_sizes` bottleneck blocks per stage (ResNet-50 by default) ->
     {"params", "batch_stats"} of the backbone."""
     params: Dict[str, Any] = {"conv1": {"kernel": conv_kernel(sd["conv1.weight"])}}
     stats: Dict[str, Any] = {}
     params["bn1"], stats["bn1"] = _bn(sd, "bn1")
-    for stage, num_blocks in enumerate(RESNET50_STAGES, start=1):
+    for stage, num_blocks in enumerate(stage_sizes, start=1):
         for block in range(num_blocks):
             t, f = f"layer{stage}.{block}", f"layer{stage}_{block}"
             p: Dict[str, Any] = {}
@@ -125,11 +126,16 @@ def convert_classifier_mlp(sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
             "fc2": _linear(sd, "classifier.4")}
 
 
-def convert_detector(sd: Mapping[str, np.ndarray], selection_sd: Mapping[str, np.ndarray],
-                     abnormal_sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+def convert_detector(sd: Mapping[str, np.ndarray],
+                     selection_sd: Optional[Mapping[str, np.ndarray]] = None,
+                     abnormal_sd: Optional[Mapping[str, np.ndarray]] = None,
+                     stage_sizes=RESNET50_STAGES) -> Dict[str, Any]:
     """A reference ObjectDetector state dict (backbone./rpn./roi_heads.)
-    plus the two classifiers' -> {"params", "batch_stats"}."""
-    bb = convert_resnet_backbone(sequential_backbone_to_named(strip_prefix(sd, "backbone.")))
+    plus the two classifiers' -> {"params", "batch_stats"}. A classifier
+    whose state dict is not given (a stage-1 detector checkpoint) is left
+    out of the tree."""
+    bb = convert_resnet_backbone(sequential_backbone_to_named(strip_prefix(sd, "backbone.")),
+                                 stage_sizes)
     params: Dict[str, Any] = {"backbone": bb["params"]}
     stats: Dict[str, Any] = {"backbone": bb["batch_stats"]}
     params["rpn_head"] = convert_rpn_head(strip_prefix(sd, "rpn.head."))
@@ -141,8 +147,10 @@ def convert_detector(sd: Mapping[str, np.ndarray], selection_sd: Mapping[str, np
     params["box_predictor"] = {"cls_score": _linear(roi, "box_predictor.cls_score"),
                                "bbox_pred": _linear(roi, "box_predictor.bbox_pred")}
     params["dim_reduction"] = _linear(roi, "dim_reduction")
-    params["selection_classifier"] = convert_classifier_mlp(selection_sd)
-    params["abnormal_classifier"] = convert_classifier_mlp(abnormal_sd)
+    if selection_sd is not None:
+        params["selection_classifier"] = convert_classifier_mlp(selection_sd)
+    if abnormal_sd is not None:
+        params["abnormal_classifier"] = convert_classifier_mlp(abnormal_sd)
     return {"params": params, "batch_stats": stats}
 
 
@@ -155,26 +163,54 @@ def _ln(sd: Mapping[str, np.ndarray], key: str) -> Dict[str, np.ndarray]:
     return {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
 
 
+def _gpt2_transformer(t: Mapping[str, np.ndarray], num_layers: int,
+                      with_pseudo_attention: bool) -> Dict[str, Any]:
+    """Keys at the HF GPT2Model level (wte.weight, h.{i}.attn.c_attn.weight,
+    ...) -> decoder params without the feature transform. A plain HF
+    GPT-2 has no uk/uv: they are zero."""
+    d = t["wte.weight"].shape[1]
+    params: Dict[str, Any] = {"wte": {"embedding": t["wte.weight"]},
+                              "wpe": {"embedding": t["wpe.weight"]},
+                              "ln_f": _ln(t, "ln_f")}
+    zero = {"kernel": np.zeros((d, d), np.float32), "bias": np.zeros((d,), np.float32)}
+    for i in range(num_layers):
+        h = f"h.{i}"
+        attn = {"c_attn": _conv1d_hf(t, f"{h}.attn.c_attn"),
+                "c_proj": _conv1d_hf(t, f"{h}.attn.c_proj")}
+        if with_pseudo_attention:
+            attn.update(uk=_linear(t, f"{h}.attn.uk"), uv=_linear(t, f"{h}.attn.uv"))
+        else:
+            attn.update(uk=dict(zero), uv=dict(zero))
+        params[f"h_{i}"] = {
+            "ln_1": _ln(t, f"{h}.ln_1"),
+            "ln_2": _ln(t, f"{h}.ln_2"),
+            "attn": attn,
+            "mlp": {"c_fc": _conv1d_hf(t, f"{h}.mlp.c_fc"),
+                    "c_proj": _conv1d_hf(t, f"{h}.mlp.c_proj")},
+        }
+    return params
+
+
 def convert_language_model(sd: Mapping[str, np.ndarray], num_layers: int = 24) -> Dict[str, Any]:
     """A reference LanguageModel state dict -> decoder params. The reference
     registers its modules under several paths; the canonical
     'gpt_with_lm_head.transformer.' one always exists and holds uk/uv."""
-    t = strip_prefix(sd, "gpt_with_lm_head.transformer.")
-    params: Dict[str, Any] = {"wte": {"embedding": t["wte.weight"]},
-                              "wpe": {"embedding": t["wpe.weight"]},
-                              "ln_f": _ln(t, "ln_f")}
-    for i in range(num_layers):
-        h = f"h.{i}"
-        params[f"h_{i}"] = {
-            "ln_1": _ln(t, f"{h}.ln_1"),
-            "ln_2": _ln(t, f"{h}.ln_2"),
-            "attn": {"c_attn": _conv1d_hf(t, f"{h}.attn.c_attn"),
-                     "c_proj": _conv1d_hf(t, f"{h}.attn.c_proj"),
-                     "uk": _linear(t, f"{h}.attn.uk"),
-                     "uv": _linear(t, f"{h}.attn.uv")},
-            "mlp": {"c_fc": _conv1d_hf(t, f"{h}.mlp.c_fc"),
-                    "c_proj": _conv1d_hf(t, f"{h}.mlp.c_proj")},
-        }
+    params = _gpt2_transformer(strip_prefix(sd, "gpt_with_lm_head.transformer."),
+                               num_layers, with_pseudo_attention=True)
     fst = strip_prefix(sd, "feature_space_transformation_nn.")
     params["feature_transform"] = {"fc0": _linear(fst, "0"), "fc1": _linear(fst, "2")}
+    return params
+
+
+def convert_hf_gpt2_lm(sd: Mapping[str, np.ndarray], num_layers: int) -> Dict[str, Any]:
+    """A plain HF GPT2LMHeadModel state dict (transformer.* keys) -> decoder
+    params, for vanilla GPT-2 generation (image_features=None, no_image) or
+    pseudo-attention training from scratch: uk/uv and the D x D feature
+    transform are zero."""
+    params = _gpt2_transformer(strip_prefix(sd, "transformer."), num_layers,
+                               with_pseudo_attention=False)
+    d = params["wte"]["embedding"].shape[1]
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    params["feature_transform"] = {"fc0": {"kernel": z(d, d), "bias": z(d)},
+                                   "fc1": {"kernel": z(d, d), "bias": z(d)}}
     return params

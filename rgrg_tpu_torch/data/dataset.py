@@ -1,7 +1,7 @@
-"""CSV-backed evaluation dataset + static-shape batch assembly (host side;
-the port's own copy, without pandas).
+"""CSV-backed dataset + static-shape batch assembly (host side; the port's
+own copy, without pandas).
 
-Emits the fixed-shape batch dict the evaluator consumes:
+Emits the fixed-shape batch dict the trainer and the evaluator consume:
 
   images            [B, S, S, 1] float32
   gt_boxes          [B, 29, 4]   (zero rows where absent)
@@ -15,8 +15,9 @@ Emits the fixed-shape batch dict the evaluator consumes:
 
 Token rows are bucketed to a fixed `seq_len` (reference sentences are <60
 tokens for ~95% of data; longer ones are truncated). Unreadable samples
-are skipped like the reference's None-filtering collator. Only the
-evaluation half is here: `train=True` waits for the training slice.
+are skipped like the reference's None-filtering collator. train=True
+augments each sample (transforms.train_transform) with draws from the
+dataset's numpy Generator, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -86,11 +87,13 @@ class Sample:
     reference_report: Optional[str] = None
 
 
-def row_to_sample(row: Row, tcfg: T.TransformConfig = T.TransformConfig()
-                  ) -> Optional[Sample]:
-    """One split row -> an evaluation Sample (val_transform), or None when
-    its image cannot be read. A missing image decoder (no cv2) raises: it
-    is a fault of the installation, not of the sample."""
+def row_to_sample(row: Row, train: bool = False,
+                  rng: Optional[np.random.Generator] = None,
+                  tcfg: T.TransformConfig = T.TransformConfig()) -> Optional[Sample]:
+    """One split row -> a Sample (train_transform with draws from `rng`
+    when train, else val_transform), or None when its image cannot be
+    read. A missing image decoder (no cv2) raises: it is a fault of the
+    installation, not of the sample."""
     try:
         image = T.load_image(row["mimic_image_file_path"])
     except ImportError:
@@ -102,7 +105,13 @@ def row_to_sample(row: Row, tcfg: T.TransformConfig = T.TransformConfig()
 
     boxes = np.asarray(row["bbox_coordinates"], np.float32).reshape(-1, 4)
     labels = np.asarray(row["bbox_labels"], np.int32)
-    image, boxes = T.val_transform(image, boxes, tcfg)
+    if train:
+        # boxes the warp pushed fully outside are dropped with their labels
+        # (albumentations' bbox filtering): the region has no gt this step
+        image, boxes, keep = T.train_transform(image, boxes, rng, tcfg)
+        labels = labels[keep]
+    else:
+        image, boxes = T.val_transform(image, boxes, tcfg)
 
     # scatter into fixed 29-slot arrays by label (labels are 1..29, unique)
     gt_boxes = np.zeros((C.NUM_REGIONS, 4), np.float32)
@@ -126,24 +135,27 @@ def row_to_sample(row: Row, tcfg: T.TransformConfig = T.TransformConfig()
 
 
 class RGRGDataset:
-    """Indexable evaluation dataset over the rows of a split."""
+    """Indexable dataset over the rows of a split. train=True augments
+    with draws from a numpy Generator seeded with `seed`."""
 
     def __init__(self, rows: Sequence[Row], tokenizer: Optional[GPT2Tokenizer],
-                 train: bool = False, seq_len: int = 64,
+                 train: bool = False, seq_len: int = 64, seed: int = 42,
                  tcfg: T.TransformConfig = T.TransformConfig()):
-        if train:
-            raise NotImplementedError("train=True (augmentations, train_transform) belongs "
-                                      "to the port's training slice, not ported yet")
         self.rows = list(rows)
         self.tokenizer = tokenizer
+        self.train = train
         self.seq_len = seq_len
         self.tcfg = tcfg
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self._epoch = 0
 
     def __len__(self) -> int:
         return len(self.rows)
 
     def __getitem__(self, idx: int) -> Optional[Sample]:
-        return row_to_sample(self.rows[idx], self.tcfg)
+        return row_to_sample(self.rows[idx], self.train,
+                             self.rng if self.train else None, self.tcfg)
 
     def tokenize_phrases(self, phrases: List[str]):
         """'<|endoftext|>' + phrase + '<|endoftext|>' per region
@@ -157,14 +169,21 @@ class RGRGDataset:
             mask[r, :len(toks)] = 1.0
         return ids, mask
 
-    def batches(self, batch_size: int, drop_last: bool = True,
+    def batches(self, batch_size: int, shuffle: bool = False, drop_last: bool = True,
                 workers: int = 0) -> Iterator[Dict[str, Any]]:
-        """Batches in row order. workers > 0 builds samples on a thread
-        pool (the image decode and the numpy resize release the GIL), the
-        analogue of the reference DataLoader's num_workers; the order and
-        the batches are the same either way."""
-        samples = (self._parallel_samples(workers) if workers > 0
-                   else (self[i] for i in range(len(self))))
+        """Batches in row order, or in an order shuffled by the dataset's
+        Generator. workers > 0 builds samples on a thread pool (the image
+        decode and the numpy resize release the GIL in part), the analogue
+        of the reference DataLoader's num_workers: each sample then draws
+        its augmentations from a Generator seeded by SeedSequence([seed,
+        epoch, index]), so the batches do not depend on thread scheduling
+        (a different stream than workers=0's shared Generator, as in the
+        JAX package)."""
+        order = np.arange(len(self))
+        if shuffle:
+            self.rng.shuffle(order)
+        samples = (self._parallel_samples(order, workers) if workers > 0
+                   else (self[int(i)] for i in order))
         buf: List[Sample] = []
         for s in samples:
             if s is None:
@@ -176,21 +195,29 @@ class RGRGDataset:
         if buf and not drop_last:
             yield self._collate(buf)
 
-    def _parallel_samples(self, workers: int) -> Iterator[Optional[Sample]]:
+    def _parallel_samples(self, order: np.ndarray, workers: int) -> Iterator[Optional[Sample]]:
         """Ordered sample construction with a bounded in-flight window
-        (workers * 2), so a split never materializes ahead of the
-        consumer."""
+        (workers * 2), so an epoch never materializes ahead of the
+        consumer. Each call is one epoch of the per-sample seeds."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
+        epoch = self._epoch
+        self._epoch += 1
+
+        def build(idx: int) -> Optional[Sample]:
+            rng = (np.random.default_rng(np.random.SeedSequence([self.seed, epoch, idx]))
+                   if self.train else None)
+            return row_to_sample(self.rows[idx], self.train, rng, self.tcfg)
+
         with ThreadPoolExecutor(workers) as ex:
-            it = iter(range(len(self)))
-            pending = deque(ex.submit(self.__getitem__, i) for i in islice(it, workers * 2))
+            it = iter(order.tolist())
+            pending = deque(ex.submit(build, i) for i in islice(it, workers * 2))
             while pending:
                 s = pending.popleft().result()
                 nxt = next(it, None)
                 if nxt is not None:
-                    pending.append(ex.submit(self.__getitem__, nxt))
+                    pending.append(ex.submit(build, nxt))
                 yield s
 
     def _collate(self, samples: List[Sample]) -> Dict[str, Any]:

@@ -168,12 +168,13 @@ def finalize(state: State, final_len: int, cfg: DecoderConfig,
     return best_seq
 
 
-def beam_generate(params: Dict[str, Any], image_features: torch.Tensor,
+def beam_generate(params: Dict[str, Any], image_features: Optional[torch.Tensor],
                   cfg: DecoderConfig, max_length: int = 300, num_beams: int = 4,
                   length_penalty: float = 1.0, early_stopping: bool = False,
                   active: Optional[torch.Tensor] = None,
                   cache_dtype: Optional[torch.dtype] = None,
-                  return_done: bool = False):
+                  return_done: bool = False, no_image: bool = False,
+                  batch: Optional[int] = None):
     """image_features [B, 1024] raw region features -> ids [B, max_length]
     (int64) of each item's best hypothesis, padded, EOS appended when it
     fits.
@@ -184,13 +185,19 @@ def beam_generate(params: Dict[str, Any], image_features: torch.Tensor,
     [B] bool `done` at loop exit: a done item's search closed before the
     cap (is_done depends on cur_len only), so its output is the same under
     any longer cap; the length-bucket cascade re-decodes only the others.
+    image_features=None with `batch` B and no_image=True runs vanilla GPT-2
+    (gpt2.prefill without features; the steps leave slot 0 out).
 
     Each decode step adds one to `beam_generate.steps`."""
     k = num_beams
-    b = image_features.shape[0]
-    feats = image_features.repeat_interleave(k, dim=0)                # [B*K, F]
+    if image_features is not None:
+        b = image_features.shape[0]
+        feats = image_features.repeat_interleave(k, dim=0)            # [B*K, F]
+    else:
+        b, feats = batch, None
     logits0, cache = gpt2.prefill(params, feats, cfg.bos_token_id, max_length,
-                                  cfg, cache_dtype=cache_dtype)
+                                  cfg, cache_dtype=cache_dtype,
+                                  batch=None if feats is not None else b * k)
     t_total = cache["k"].shape[3]
     cache = gpt2.cache_to_beam_layers(cache)
     dev = logits0.device
@@ -208,7 +215,8 @@ def beam_generate(params: Dict[str, Any], image_features: torch.Tensor,
     t = 0
     # the reference stops once cur_len = t + 2 reaches max_length
     while t + 2 < max_length and not bool(state["done"].all()):
-        logits, cache = gpt2.decode_step_beam(params, tok, t, cache, anc, cfg)
+        logits, cache = gpt2.decode_step_beam(params, tok, t, cache, anc, cfg,
+                                              no_image=no_image)
         new_beam, tok, state = process(logits, state, t + 2, *lp_args)
         anc = reorder_ancestry(anc, new_beam, t + 3)
         t += 1

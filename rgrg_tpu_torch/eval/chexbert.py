@@ -118,12 +118,13 @@ def chexbert_label(params: Dict[str, Any], input_ids, attention_mask,
 
 def convert_chexbert(sd: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """CheXbert state dict (torch tensors or numpy arrays) -> float32
-    parameter tensors on `device` (default: the card). Accepts
+    parameter tensors on `device` (default: the card), copies that share no
+    memory with `sd` (fine-tuning updates them in place). Accepts
     DataParallel ("module."-prefixed) and bare checkpoints; bert under
     "bert.*", heads under "linear_heads.{i}.*"."""
     dev = resolve_device(device)
     sd = {(k[len("module."):] if k.startswith("module.") else k):
-          torch.as_tensor(v).float().to(dev) for k, v in sd.items()}
+          torch.as_tensor(v).to(dev, torch.float32, copy=True) for k, v in sd.items()}
 
     def lin(key):
         return {"kernel": sd[f"{key}.weight"].t().contiguous(), "bias": sd[f"{key}.bias"]}

@@ -7,6 +7,8 @@ test_set_evaluation.py layout) and all scores as JSON.
         [--chexbert-checkpoint chexbert.pth --bert-vocab vocab.txt] \\
         [--cider-df df.bin.gz]
 
+--checkpoint takes a reference .pt/.pth or a checkpoint directory of a
+training run (python -m rgrg_tpu_torch.train: <run_dir>/last or best).
 Decodes with beam 4 and early stopping at max_length 300 through the
 length-bucket cascade, as the reference evaluates. Runs on the card
 unless `--device cpu` is given. The figures (--num-figure-images) need
@@ -23,7 +25,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--checkpoint", required=True, help="reference .pt/.pth checkpoint")
+    ap.add_argument("--checkpoint", required=True,
+                    help="reference .pt/.pth, or a training checkpoint directory")
     ap.add_argument("--tokenizer-dir", required=True)
     ap.add_argument("--test-csv", required=True, nargs="+",
                     help="test.csv [test-2.csv]")
@@ -107,15 +110,24 @@ def evaluate_splits(gen, csv_paths: Sequence[str], out_dir: str, batch_size: int
     return all_scores
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-    if not args.checkpoint.endswith((".pt", ".pth")):
-        raise SystemExit(f"--checkpoint must be a .pt/.pth file, got {args.checkpoint}")
-
+def load_generator(checkpoint: str, tokenizer_dir: str, cfg=None, device="cuda"):
+    """A ReportGenerator from a reference .pt/.pth or from a checkpoint
+    directory of core/checkpoint.save_checkpoint, built for `cfg` (a
+    ModelConfig; default the reference's)."""
+    from rgrg_tpu_torch.core.config import ModelConfig
     from rgrg_tpu_torch.inference import ReportGenerator
+    cfg = cfg or ModelConfig()
+    if checkpoint.endswith((".pt", ".pth")):
+        return ReportGenerator.from_torch_checkpoint(checkpoint, tokenizer_dir, cfg=cfg,
+                                                     device=device)
+    return ReportGenerator.from_checkpoint(checkpoint, tokenizer_dir, cfg=cfg, device=device)
 
-    gen = ReportGenerator.from_torch_checkpoint(args.checkpoint, args.tokenizer_dir,
-                                                device=args.device)
+
+def main(argv=None, cfg=None) -> None:
+    """`cfg`: the ModelConfig the checkpoint was built for (default the
+    reference's)."""
+    args = build_parser().parse_args(argv)
+    gen = load_generator(args.checkpoint, args.tokenizer_dir, cfg, args.device)
     chexbert = None
     if args.chexbert_checkpoint and args.bert_vocab:
         from rgrg_tpu_torch.core.checkpoint import load_torch_checkpoint

@@ -17,6 +17,7 @@ one image.
 
 Usage:
     gen = ReportGenerator.from_torch_checkpoint("ckpt.pt", tokenizer_dir)
+    gen = ReportGenerator.from_checkpoint("runs/r1/last", tokenizer_dir)
     reports = gen.generate_reports(["a.png", xray_u8_b])
 """
 
@@ -30,7 +31,7 @@ import torch
 
 from rgrg_tpu_torch.core import constants as C
 from rgrg_tpu_torch.core.config import ModelConfig
-from rgrg_tpu_torch.core.device import DeviceLike
+from rgrg_tpu_torch.core.device import DeviceLike, resolve_device
 from rgrg_tpu_torch.data.preprocess import preprocess_batch
 from rgrg_tpu_torch.data.transforms import load_image
 from rgrg_tpu_torch.models.full_model import RGRG, Params
@@ -79,10 +80,24 @@ class ReportGenerator:
         from rgrg_tpu_torch.core.checkpoint import (convert_full_checkpoint,
                                                     load_torch_checkpoint)
         from rgrg_tpu_torch.core.convert import from_jax_params
+        device = resolve_device(device)
         tree = convert_full_checkpoint(load_torch_checkpoint(checkpoint_path),
-                                       num_layers=cfg.decoder.num_layers)
+                                       num_layers=cfg.decoder.num_layers,
+                                       stage_sizes=cfg.detector.backbone_stages)
         return cls(from_jax_params(tree, cfg, device),
                    GPT2Tokenizer.from_dir(tokenizer_dir), cfg=cfg, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, tokenizer_dir: str,
+                        cfg: ModelConfig = ModelConfig(), device: DeviceLike = None,
+                        **kw) -> "ReportGenerator":
+        """A checkpoint directory of core/checkpoint.save_checkpoint (a
+        training run's `<run_dir>/last` or `best`, whose TrainState's params
+        are taken, or a bare params tree) built for `cfg`, and a GPT-2
+        tokenizer directory -> a generator on `device` (default cuda)."""
+        from rgrg_tpu_torch.core.checkpoint import load_params
+        return cls(load_params(path, cfg, device), GPT2Tokenizer.from_dir(tokenizer_dir),
+                   cfg=cfg, **kw)
 
     def preprocess(self, images: Sequence[ImageLike],
                    transfer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

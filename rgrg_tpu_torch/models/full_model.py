@@ -26,6 +26,7 @@ from rgrg_tpu_torch.core.config import ModelConfig
 from rgrg_tpu_torch.core.device import DeviceLike, resolve_device
 from rgrg_tpu_torch.decode.beam import beam_generate
 from rgrg_tpu_torch.decode.greedy import greedy_generate
+from rgrg_tpu_torch.decode.sample import sample_generate
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.models.detector import RegionDetector
 from rgrg_tpu_torch.models.layers import init_module_
@@ -104,11 +105,23 @@ class RGRG:
     def decode_rows(self, params: Params, features: torch.Tensor, max_length: int,
                     num_beams: int = 1, early_stopping: bool = False,
                     active: Optional[torch.Tensor] = None,
-                    kv_cache_dtype: Optional[torch.dtype] = None):
-        """Decode region features [N, 1024] row by row: greedy, or beam
-        search when num_beams > 1. Returns (ids [N, max_length], done): done
-        is beam search's [N] mask of searches closed before max_length,
-        None for greedy."""
+                    kv_cache_dtype: Optional[torch.dtype] = None,
+                    do_sample: bool = False, temperature: float = 1.0, top_k: int = 0,
+                    top_p: float = 1.0,
+                    sample_generator: Optional[torch.Generator] = None):
+        """Decode region features [N, 1024] row by row: sampling when
+        do_sample, else beam search when num_beams > 1, else greedy.
+        Returns (ids [N, max_length], done): done is beam search's [N] mask
+        of searches closed before max_length, None otherwise. Sampling draws
+        from `sample_generator` (on the features' device), by default a
+        generator seeded with 0."""
+        if do_sample:
+            if sample_generator is None:
+                sample_generator = torch.Generator(device=features.device).manual_seed(0)
+            return sample_generate(params["decoder"], features, sample_generator,
+                                   self.cfg.decoder, max_length=max_length,
+                                   temperature=temperature, top_k=top_k, top_p=top_p,
+                                   active=active, cache_dtype=kv_cache_dtype), None
         if num_beams > 1:
             return beam_generate(
                 params["decoder"], features, self.cfg.decoder,
@@ -125,17 +138,22 @@ class RGRG:
                         selected_regions: torch.Tensor, r_budget: int,
                         max_length: int, kv_cache_dtype: Optional[torch.dtype] = None,
                         num_beams: int = 1, early_stopping: bool = False,
-                        return_done: bool = False):
+                        return_done: bool = False, do_sample: bool = False,
+                        temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                        sample_generator: Optional[torch.Generator] = None):
         """Compact the selected regions to r_budget rows, decode them
-        (greedy, or beam search when num_beams > 1), scatter back.
+        (decode_rows: greedy, beam search when num_beams > 1, or sampling
+        when do_sample, with temperature, top_k, top_p and
+        sample_generator), scatter back.
         region_features [B, 29, 1024]; selected_regions [B, 29] bool.
         Returns (output_ids [B, 29, max_length], decoded_mask [B, 29]):
         decoded_mask marks the regions whose row fit in the budget.
         return_done (beam search only) adds a [B, 29] bool mask of the rows
         whose search closed before max_length (beam_generate), the
         cascade's test of a final row."""
-        if return_done and num_beams <= 1:
-            raise ValueError("return_done is a beam-search signal (num_beams > 1)")
+        if return_done and (num_beams <= 1 or do_sample):
+            raise ValueError("return_done is a beam-search signal "
+                             "(num_beams > 1, no sampling)")
         b = region_features.shape[0]
         pad = self.cfg.decoder.pad_token_id
         flat_feats = region_features.reshape(b * C.NUM_REGIONS, -1)
@@ -144,7 +162,8 @@ class RGRG:
         active = sel[idx]
         ids, row_done = self.decode_rows(params, flat_feats[idx], max_length,
                                          num_beams, early_stopping, active,
-                                         kv_cache_dtype)
+                                         kv_cache_dtype, do_sample, temperature,
+                                         top_k, top_p, sample_generator)
 
         def scatter(rows: torch.Tensor, fill) -> torch.Tensor:
             full = torch.full((b * C.NUM_REGIONS,) + rows.shape[1:], fill,

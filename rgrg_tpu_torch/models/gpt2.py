@@ -332,24 +332,33 @@ def _logits(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor
     return torch.matmul(x[:, 0, :], params["wte"]["embedding"].T)
 
 
-def prefill(params: Params, image_features: torch.Tensor, bos_token: int,
+def prefill(params: Params, image_features: Optional[torch.Tensor], bos_token: int,
             max_len: int, cfg: DecoderConfig,
-            cache_dtype: Optional[torch.dtype] = None):
+            cache_dtype: Optional[torch.dtype] = None, batch: Optional[int] = None):
     """Start generation: write the image K/V to slot 0 and the BOS token's
     K/V to slot 1 of every layer. Returns (logits [B, vocab] at the BOS
     position, cache). The cache follows the parameter dtype unless
-    `cache_dtype` is given (torch.int8 for the quantized cache)."""
-    b = image_features.shape[0]
+    `cache_dtype` is given (torch.int8 for the quantized cache).
+
+    image_features=None runs vanilla GPT-2 over `batch` rows: slot 0 stays
+    zero and gets no weight, here and in the decode steps (no_image=True)."""
+    with_image = image_features is not None
+    b = image_features.shape[0] if with_image else batch
+    if b is None:
+        raise ValueError("prefill without image features needs `batch`")
     wte = params["wte"]["embedding"]
     if cache_dtype is None:
         cache_dtype = wte.dtype
-    img = feature_transform(params, image_features)[:, None, :]       # [B,1,D]
+    if with_image:
+        img = feature_transform(params, image_features)[:, None, :]   # [B,1,D]
     cache = init_cache(b, max_len, cfg, cache_dtype, device=wte.device)
 
     ids = torch.full((b, 1), bos_token, dtype=torch.long, device=wte.device)
     pos = torch.zeros((b, 1), dtype=torch.long, device=wte.device)
     x = wte[ids] + _positions_embed(params, pos, cfg)
-    bias = torch.zeros((1, 1, 1, 2), dtype=x.dtype, device=x.device)
+    # image + BOS both visible, or BOS alone
+    bias = torch.tensor([[[[0.0 if with_image else MASK_VALUE, 0.0]]]],
+                        dtype=x.dtype, device=x.device)
 
     for i in range(cfg.num_layers):
         bp = params[f"h_{i}"]
@@ -357,12 +366,17 @@ def prefill(params: Params, image_features: torch.Tensor, bos_token: int,
                      bp["attn"]["c_attn"])
         q, k_w, v_w = torch.split(qkv, cfg.hidden_dim, dim=-1)
         qh = _split_heads(q, cfg.num_heads, cfg.head_dim)            # [B,H,1,D]
-        k_img = _split_heads(_dense(img, bp["attn"]["uk"]), cfg.num_heads, cfg.head_dim)
-        v_img = _split_heads(_dense(img, bp["attn"]["uv"]), cfg.num_heads, cfg.head_dim)
-        k01 = torch.cat([k_img, _split_heads(k_w, cfg.num_heads, cfg.head_dim)], dim=2)
-        v01 = torch.cat([v_img, _split_heads(v_w, cfg.num_heads, cfg.head_dim)], dim=2)
+        kh = _split_heads(k_w, cfg.num_heads, cfg.head_dim)
+        vh = _split_heads(v_w, cfg.num_heads, cfg.head_dim)
+        if with_image:
+            k_img = _split_heads(_dense(img, bp["attn"]["uk"]), cfg.num_heads, cfg.head_dim)
+            v_img = _split_heads(_dense(img, bp["attn"]["uv"]), cfg.num_heads, cfg.head_dim)
+        else:
+            k_img, v_img = torch.zeros_like(kh), torch.zeros_like(vh)
+        k01 = torch.cat([k_img, kh], dim=2)
+        v01 = torch.cat([v_img, vh], dim=2)
         _cache_write(cache, i, slice(0, 2), k01, v01)
-        # image + BOS both visible; attends over the unquantized values
+        # attends over the unquantized values
         a = _attention(qh, k01, v01, bias)
         x = x + _dense(_merge_heads(a), bp["attn"]["c_proj"])
         x = _mlp(x, bp, cfg)
@@ -371,12 +385,15 @@ def prefill(params: Params, image_features: torch.Tensor, bos_token: int,
 
 
 def decode_step(params: Params, token: torch.Tensor, step: int,
-                cache: Dict[str, torch.Tensor], cfg: DecoderConfig):
+                cache: Dict[str, torch.Tensor], cfg: DecoderConfig,
+                no_image: bool = False):
     """One generation step, updating `cache` in place.
 
     token [B]: the token generated at position `step` (0-based over
     generated tokens); its position id is step+1 and its cache slot step+2
-    (slot 0 = image, slot 1 = BOS). Returns (logits [B, vocab], cache)."""
+    (slot 0 = image, slot 1 = BOS). no_image: slot 0 gets no weight
+    (vanilla GPT-2, after prefill without image features). Returns
+    (logits [B, vocab], cache)."""
     b = token.shape[0]
     wte = params["wte"]["embedding"]
     pos = torch.full((b, 1), step + 1, dtype=torch.long, device=wte.device)
@@ -384,7 +401,10 @@ def decode_step(params: Params, token: torch.Tensor, step: int,
 
     t_total = cache["k"].shape[3]
     slot = step + 2
-    visible = torch.arange(t_total, device=x.device) <= slot
+    t_idx = torch.arange(t_total, device=x.device)
+    visible = t_idx <= slot
+    if no_image:
+        visible = visible & (t_idx != 0)
     bias = torch.where(visible, 0.0, MASK_VALUE).to(x.dtype)[None, None, None, :]
 
     for i in range(cfg.num_layers):
@@ -419,7 +439,7 @@ def cache_to_beam_layers(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
 
 def decode_step_beam(params: Params, token: torch.Tensor, step: int,
                      cache: Dict[str, torch.Tensor], ancestry: torch.Tensor,
-                     cfg: DecoderConfig):
+                     cfg: DecoderConfig, no_image: bool = False):
     """One beam-search step with ancestry-masked attention, updating `cache`
     in place.
 
@@ -429,7 +449,9 @@ def decode_step_beam(params: Params, token: torch.Tensor, step: int,
     lane holds that slot's K/V. The cache is never reordered: beam
     reordering rewrites only the ancestry table, and every layer's
     attention reads the named rows (ops/beam_attn.beam_attention, kernel K3
-    on the card). Returns (logits [B*K, vocab], cache)."""
+    on the card). no_image: attend from slot 1 on (t0=1), so the zero
+    image slot of a vanilla GPT-2 prefill is left out, not merely given a
+    weight of exp(-1e4). Returns (logits [B*K, vocab], cache)."""
     bk = token.shape[0]
     wte = params["wte"]["embedding"]
     pos = torch.full((bk, 1), step + 1, dtype=torch.long, device=wte.device)
@@ -456,7 +478,7 @@ def decode_step_beam(params: Params, token: torch.Tensor, step: int,
             cache[f"v_{i}"][:, :, slot] = vh
         ctx = beam_attention(q.reshape(bk, h, d).contiguous(), cache[f"k_{i}"],
                              cache[f"v_{i}"], ancestry, slot, scale=scale,
-                             k_scale=cache.get(f"k_scale_{i}"),
+                             t0=1 if no_image else 0, k_scale=cache.get(f"k_scale_{i}"),
                              v_scale=cache.get(f"v_scale_{i}"))       # [BK,H,D] f32
         x = x + _dense(ctx.to(x.dtype).reshape(bk, 1, h * d), bp["attn"]["c_proj"])
         x = _mlp(x, bp, cfg)

@@ -17,12 +17,13 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Mapping, Optional
 
 import torch
 
 from rgrg_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from rgrg_tpu_torch.core.config import RGRGConfig
+from rgrg_tpu_torch.core.convert import load_detector_
 from rgrg_tpu_torch.core.device import DeviceLike
 from rgrg_tpu_torch.models.full_model import RGRG
 from rgrg_tpu_torch.train import trainer
@@ -71,16 +72,21 @@ class PlateauScheduler:
 def warm_start_params(params: trainer.Params, init_params: trainer.Params) -> trainer.Params:
     """The stage-(N-1) -> stage-N handoff: each top-level entry of
     init_params replaces the fresh init ("detector": a RegionDetector or its
-    state dict, loaded into params' detector in place; "decoder": a tree of
-    tensors, copied to the params' device). Entries absent from init_params
-    keep their init; an unknown entry raises."""
+    state dict, or the JAX package's layout {"params", "batch_stats"} of
+    numpy arrays as core/checkpoint's converters give it, loaded into
+    params' detector in place, where modules the layout lacks (a stage-1
+    checkpoint's classifiers) keep their init; "decoder": a tree of
+    tensors or arrays, copied to the params' device). Entries absent from
+    init_params keep their init; an unknown entry raises."""
     params = dict(params)
     device = params["decoder"]["wte"]["embedding"].device
     for key, sub in init_params.items():
         if key not in params:
             raise KeyError(f"warm-start entry {key!r} not in model params "
                            f"(have {sorted(params)})")
-        if key == "detector":
+        if key == "detector" and isinstance(sub, Mapping) and "params" in sub:
+            load_detector_(params["detector"], sub, strict=False)
+        elif key == "detector":
             state = sub.state_dict() if isinstance(sub, torch.nn.Module) else sub
             params["detector"].load_state_dict(state)
         else:

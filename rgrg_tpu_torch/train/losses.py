@@ -48,6 +48,16 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
     return torch.sum(x * m, dim=dim) / torch.clamp(torch.sum(m, dim=dim), min=1.0)
 
 
+def _finite(targets: torch.Tensor) -> torch.Tensor:
+    """Regression targets with the non-finite ones set to 0. Only rows the
+    box loss masks out can have them: an anchor or proposal without a match
+    takes gt slot 0, all zeros when the image lacks that region (log(0)),
+    and a zero-area padding proposal divides by 0. Masked by a product,
+    they would make the loss and its gradient NaN, as in the JAX package
+    (ROADMAP section 3); finite targets are kept as they are."""
+    return torch.nan_to_num(targets, nan=0.0, posinf=0.0, neginf=0.0)
+
+
 def rpn_loss(rng: assign.Rng, objectness: torch.Tensor, pred_deltas: torch.Tensor,
              anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
              cfg: DetectorConfig) -> Dict[str, torch.Tensor]:
@@ -59,7 +69,7 @@ def rpn_loss(rng: assign.Rng, objectness: torch.Tensor, pred_deltas: torch.Tenso
     labels = torch.where(m.matched_idx == assign.BETWEEN, -1.0, labels)
     matched_gt = torch.gather(gt_boxes, 1, torch.clamp(m.matched_idx, min=0)[..., None]
                               .expand(-1, -1, 4))
-    reg_targets = box_ops.encode_boxes(matched_gt, anchors)
+    reg_targets = _finite(box_ops.encode_boxes(matched_gt, anchors))
     pos, neg = assign.sample_pos_neg(rng, labels, cfg.rpn.batch_size_per_image,
                                      cfg.rpn.positive_fraction)
     sampled = pos | neg
@@ -107,7 +117,8 @@ def select_training_samples(rng: assign.Rng, proposals: torch.Tensor,
     sel_labels = torch.gather(labels, 1, idx).to(torch.int64)
     matched_gt = torch.gather(gt_boxes, 1, torch.gather(clamped, 1, idx)[..., None]
                               .expand(-1, -1, 4))
-    reg_t = box_ops.encode_boxes(matched_gt, sel_props, weights=cfg.roi.bbox_reg_weights)
+    reg_t = _finite(box_ops.encode_boxes(matched_gt, sel_props,
+                                         weights=cfg.roi.bbox_reg_weights))
     return RoISamples(sel_props, sel_labels, reg_t, sampled, sampled & (sel_labels > 0))
 
 

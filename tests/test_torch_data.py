@@ -214,8 +214,12 @@ def test_missing_image_decoder_raises(split, monkeypatch, workers):
 
 
 def test_train_mode_waits_for_the_training_slice(split):
+    """train=True, which the training slice ported, builds augmented
+    samples (tests/test_torch_augment.py holds them against JAX); an
+    unreadable row is skipped in either mode."""
     rows = read_split_csv(split)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        RGRGDataset(rows, GPT2Tokenizer.dummy(), train=True)
+    ds = RGRGDataset(rows, GPT2Tokenizer.dummy(), train=True)
+    assert ds.train and ds[0].image.shape == (512, 512, 1)
     assert row_to_sample(rows[2]) is None  # the unreadable row
+    assert row_to_sample(rows[2], train=True, rng=np.random.default_rng(0)) is None
     assert row_to_sample(rows[0]).image.shape == (512, 512, 1)

@@ -87,9 +87,10 @@ def _mlp_inv(dst, prefix, p):
         _linear_inv(dst, f"{prefix}.classifier.{i}", p[name])
 
 
-def build_reference_state_dict(params):
+def build_reference_state_dict(params, stages=(3, 4, 6, 3)):
     """Our params tree -> reference-named torch state dict (see module
-    docstring for the conventions exercised)."""
+    docstring for the conventions exercised); `stages`: the backbone's
+    bottleneck blocks per stage."""
     sd = {}
     det = params["detector"]["params"]
     stats = params["detector"]["batch_stats"]
@@ -99,7 +100,7 @@ def build_reference_state_dict(params):
     bb, bs = det["backbone"], stats["backbone"]
     _conv_inv(sd, "object_detector.backbone.0", bb["conv1"])
     _bn_inv(sd, "object_detector.backbone.1", bb["bn1"], bs["bn1"])
-    for stage, blocks in enumerate((3, 4, 6, 3), start=1):
+    for stage, blocks in enumerate(stages, start=1):
         for b in range(blocks):
             src, ssrc = bb[f"layer{stage}_{b}"], bs[f"layer{stage}_{b}"]
             t = f"object_detector.backbone.{3 + stage}.{b}"

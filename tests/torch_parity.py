@@ -15,7 +15,7 @@ numpy, torch and rgrg_tpu_torch.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -145,10 +145,10 @@ def greedy_logit_margin(params: Dict[str, Any], image_features: torch.Tensor,
 
 
 @torch.no_grad()
-def beam_score_margin(params: Dict[str, Any], image_features: torch.Tensor,
+def beam_score_margin(params: Dict[str, Any], image_features: Optional[torch.Tensor],
                       cfg: DecoderConfig, max_length: int, num_beams: int,
                       early_stopping: bool, length_penalty: float = 1.0,
-                      cache_dtype=None) -> float:
+                      cache_dtype=None, batch: Optional[int] = None) -> float:
     """Least gap of every score comparison a beam decode makes (the port's
     beam search, replayed step by step), i.e. how close any decision came
     to flipping:
@@ -159,12 +159,15 @@ def beam_score_margin(params: Dict[str, Any], image_features: torch.Tensor,
         candidates it took in, and the live beams finalize adds), adjacent
         pairs after sorting: the pool's top-K merge and finalize's argmax;
       - with early_stopping=False, the worst finished score against the
-        best live score once the pool is full (the `done` rule)."""
+        best live score once the pool is full (the `done` rule).
+    image_features=None decodes `batch` rows of vanilla GPT-2 (no_image)."""
     k = num_beams
-    b = image_features.shape[0]
-    logits, cache = gpt2.prefill(params, image_features.repeat_interleave(k, dim=0),
+    no_image = image_features is None
+    b = batch if no_image else image_features.shape[0]
+    logits, cache = gpt2.prefill(params, None if no_image else
+                                 image_features.repeat_interleave(k, dim=0),
                                  cfg.bos_token_id, max_length, cfg,
-                                 cache_dtype=cache_dtype)
+                                 cache_dtype=cache_dtype, batch=b * k)
     t_total = cache["k"].shape[3]
     cache = gpt2.cache_to_beam_layers(cache)
     anc = torch.arange(k, dtype=torch.int32, device=logits.device)[None, :, None].expand(
@@ -197,7 +200,8 @@ def beam_score_margin(params: Dict[str, Any], image_features: torch.Tensor,
         cur_len += 1
         if cur_len >= max_length or bool(state["done"].all()):
             break
-        logits, cache = gpt2.decode_step_beam(params, tok, cur_len - 2, cache, anc, cfg)
+        logits, cache = gpt2.decode_step_beam(params, tok, cur_len - 2, cache, anc, cfg,
+                                              no_image=no_image)
     lp = beam.length_penalty_divisor(cur_len, length_penalty)
     for i in range(b):
         if not state["done"][i]:
