@@ -129,7 +129,22 @@ Phases (any failed check raises and the script exits non-zero):
      ReportGenerator.from_checkpoint(<run_dir>/last) evaluates one val
      batch at beam 4 through K1-K3;
  19. (e) CheXbert fine-tuning: a small labeler card vs CPU (losses 1e-4),
-     then ms per step at BERT-base width (batch 16 x 128 tokens).
+     then ms per step at BERT-base width (batch 16 x 128 tokens);
+ 20. offline pipeline and product CLI (`phase_offline`), full width from a
+     checkpoint directory (save_checkpoint of the main path's seeded
+     weights): (a) `python -m rgrg_tpu_torch.create_dataset` over a
+     synthetic Chest ImaGenome / MIMIC-CXR / MIMIC-CXR-JPG tree of 40
+     studies (tests/etl_corpus.py; header-only JPEGs, pixels held in memory);
+     (b) split statistics, pixel mean/std, CIDEr-D frequencies of valid.csv,
+     then `python -m rgrg_tpu_torch.evaluate --cider-df` on test.csv and
+     test-2.csv (a batch of 8 each, beam 4, max_length 300); (c) `python -m
+     rgrg_tpu_torch.generate_reports` on 16 X-rays at its defaults, its file
+     equal to load_generator + generate_reports; (d) `python -m
+     rgrg_tpu_torch.serve --weights-int8 pallas` on the directory (2 batches
+     of 8, greedy), its file equal to from_checkpoint +
+     generate_reports_pipelined; (e) one beam request under
+     utils/logging.trace (the trace names K1-K3) and `summarize` of the
+     parameters; K1-K4 counters checked at each entry point.
 
 TF32 is off for the whole run (the f32 training numbers are without it). Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -889,6 +904,14 @@ def _tree_map(tree, fn):
     return fn(tree)
 
 
+def _tensors(tree):
+    """Every tensor of a nested dict (the decoder's parameter tree)."""
+    out = []
+    for v in tree.values():
+        out += _tensors(v) if isinstance(v, dict) else [v]
+    return out
+
+
 def full_width_config():
     """ResNet-50, 1000 proposals, bf16 detector; GPT-2 Medium decoder."""
     from rgrg_tpu_torch.core.config import DetectorConfig, ModelConfig
@@ -935,12 +958,8 @@ def phase_main(np, torch, dev, result, cfg, raw_shape=RAW_SHAPE):
     params = RGRG(cfg).init(seed=0, device=dev, decoder_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tensors = list(params["detector"].parameters()) + list(params["detector"].buffers())
-    stack = [params["decoder"]]
-    while stack:
-        node = stack.pop()
-        for v in node.values():
-            (stack.append(v) if isinstance(v, dict) else tensors.append(v))
+    tensors = (list(params["detector"].parameters()) + list(params["detector"].buffers())
+               + _tensors(params["decoder"]))
     check(all(t.device.type == dev.type for t in tensors), "a parameter is off the card")
     n_params = sum(t.numel() for t in tensors)
     gen = ReportGenerator(params, GPT2Tokenizer.dummy(), cfg=cfg)
@@ -1564,29 +1583,36 @@ def timed_calls(fn, sink):
 
 @contextlib.contextmanager
 def images_in_memory(arrays):
-    """data/transforms.load_image reads "mem://<i>" as arrays[i] inside the
-    block (the card's machine has no cv2 to write or read image files), so
-    the dataset's row_to_sample runs as it does on files."""
+    """Inside the block data/transforms.load_image (and the inference
+    module's reference to it) reads a path as arrays[path], a dict of uint8
+    images (the card's machine has no cv2 to write or read image files), so
+    the dataset's row_to_sample, ReportGenerator's preprocessing and the
+    CLIs run as they do on files."""
+    from rgrg_tpu_torch import inference
     from rgrg_tpu_torch.data import transforms
     original = transforms.load_image
-    transforms.load_image = lambda path: arrays[int(path[len("mem://"):])]
+
+    def load(path):
+        return arrays[path]
+    transforms.load_image = inference.load_image = load
     try:
         yield
     finally:
-        transforms.load_image = original
+        transforms.load_image = inference.load_image = original
 
 
 def eval_rows(np, n, raw_shape, seed):
     """`n` split rows in the ETL's schema (read_split_csv's dicts) over
-    seeded uint8 X-rays kept in memory: 20-29 gt boxes of random sizes,
-    phrases of report words for ~60% of them, the reference report."""
+    seeded uint8 X-rays kept in memory ({"mem://<i>": image}): 20-29 gt
+    boxes of random sizes, phrases of report words for ~60% of them, the
+    reference report."""
     rng = np.random.default_rng(seed)
     from tests.torch_parity import WORDS
     words = [w.lower() for w in WORDS if w != "."]
-    arrays, rows = [], []
+    arrays, rows = {}, []
     h, w = raw_shape
     for i in range(n):
-        arrays.append(rng.integers(0, 256, raw_shape, dtype=np.uint8))
+        arrays[f"mem://{i}"] = rng.integers(0, 256, raw_shape, dtype=np.uint8)
         labels = sorted(rng.choice(np.arange(1, 30), int(rng.integers(20, 30)),
                                    replace=False).tolist())
         xy = rng.uniform(0, [w * 0.8, h * 0.8], (len(labels), 2))
@@ -2501,7 +2527,8 @@ def phase_train_cli(np, torch, dev, result):
     tok = report_tokenizer(mcfg.decoder.vocab_size, mcfg.decoder.eos_token_id, byte_level=True)
     tok_dir = write_tokenizer_dir(tok, os.path.join(work, "tokenizer"))
     rng = np.random.default_rng(41)
-    arrays = [rng.integers(0, 256, RAW_SHAPE, dtype=np.uint8) for _ in range(CLI_IMAGES)]
+    arrays = {f"mem://{i}": rng.integers(0, 256, RAW_SHAPE, dtype=np.uint8)
+              for i in range(CLI_IMAGES)}
     train_csv = write_split_csv(np, os.path.join(work, "train.csv"), CLI_STEPS * b,
                                 CLI_IMAGES, RAW_SHAPE, seed=42)
     val_csv = write_split_csv(np, os.path.join(work, "val.csv"), max(b, BATCH), CLI_IMAGES,
@@ -2714,6 +2741,373 @@ def phase_chexbert_train(np, torch, dev, result):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ offline pipeline
+
+OFFLINE_DIR = os.path.join(ROOT, "build", "smoke_offline")
+OFFLINE_IMAGES = 16      # X-rays through the product CLI and the serve CLI
+TRACE_MAX_LENGTH = 8     # the traced beam request: 6 beam steps keep the trace small
+KERNEL_NAMES = ("nms_keep_mask_kernel", "roi_align_kernel", "beam_attn_kernel")
+
+
+def quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its printout captured; (result, printout)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def phase_offline(np, torch, dev, result):
+    """20. The offline data pipeline and the product CLI at full width:
+    (a) `python -m rgrg_tpu_torch.create_dataset`'s main over a synthetic
+    Chest ImaGenome / MIMIC-CXR / MIMIC-CXR-JPG tree of 40 studies
+    (tests/etl_corpus.py: header-only JPEGs of 2048x2500 or 2500x2048, whose
+    seeded uint8 pixels are held in memory); (b) dataset statistics and the
+    pixel mean/std of the train csv, the CIDEr-D frequencies of valid.csv
+    (`compute_cider_df`), then `python -m rgrg_tpu_torch.evaluate` on
+    test.csv and test-2.csv from a checkpoint directory of the main path's
+    weights (save_checkpoint of RGRG(full width).init(seed=0)) with
+    `--cider-df`, beam 4 at max_length 300, one batch of 8 each; (c)
+    `python -m rgrg_tpu_torch.generate_reports` on 16 of those X-rays at its
+    defaults (beam 4, max_length 300, batches of 8), its file equal to
+    load_generator + generate_reports; (d) `python -m rgrg_tpu_torch.serve`
+    on the directory, 2 batches of 8, greedy, max_length 60, with
+    `--weights-int8 pallas`, its file equal to from_checkpoint +
+    generate_reports_pipelined; (e) one beam-4 request of 8 (max_length 8)
+    under utils/logging.trace, whose trace must name K1-K3, and `summarize`
+    of the full-width parameters. K1-K4 counters are checked at each entry
+    point. Returns the entry points' launches."""
+    import glob
+    import math
+    import shutil
+    from rgrg_tpu_torch import compute_cider_df, create_dataset, dataset_stats, evaluate
+    from rgrg_tpu_torch import generate_reports as generate_cli
+    from rgrg_tpu_torch import serve as serve_cli
+    from rgrg_tpu_torch import serving
+    from rgrg_tpu_torch.core.checkpoint import save_checkpoint
+    from rgrg_tpu_torch.data.dataset import read_split_csv
+    from rgrg_tpu_torch.data.stats import compute_mean_std, load_cider_doc_frequencies
+    from rgrg_tpu_torch.data.stats import dataset_stats as split_stats
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.decode.greedy import greedy_generate
+    from rgrg_tpu_torch.eval import evaluator, nlg
+    from rgrg_tpu_torch.inference import ReportGenerator, write_generated_reports_to_txt
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    from rgrg_tpu_torch.utils.logging import trace
+    from rgrg_tpu_torch.utils.summary import param_counts, summarize
+    from tests.etl_corpus import header_only_jpeg, write_corpus
+
+    cfg = full_width_config()
+    layers = cfg.decoder.num_layers
+    chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
+
+    def reset_counts():
+        nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+        dense_wint8.launches = beam_generate.steps = 0
+        greedy_generate.steps = greedy_generate.prefills = 0
+
+    def read_counts():
+        return {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+                "beam_attention": beam_attention.launches, "dense_wint8": dense_wint8.launches,
+                "beam_steps": beam_generate.steps, "greedy_steps": greedy_generate.steps,
+                "prefills": greedy_generate.prefills}
+
+    def check_beam(counts, batches, what):
+        check(counts["nms"] == batches and counts["roi_align"] == batches * chunks
+              and counts["beam_steps"] > 0
+              and counts["beam_attention"] == layers * counts["beam_steps"]
+              and counts["dense_wint8"] == 0, f"{what}: launches {counts}")
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    out = {}
+    launches = dict.fromkeys(("nms", "roi_align", "beam_attention", "dense_wint8"), 0)
+    try:
+        # (a) the ETL on the host
+        corpus = write_corpus(os.path.join(OFFLINE_DIR, "corpus"), seed=0)
+        rng = np.random.default_rng(31)
+        arrays = {p: rng.integers(0, 256, hw, dtype=np.uint8)
+                  for p, hw in sorted(corpus["images"].items())}
+        splits = corpus["output_dir"]
+        t = time.perf_counter()
+        quiet(create_dataset.main, ["--chest-imagenome", corpus["chest_imagenome"],
+                                    "--mimic-cxr", corpus["mimic_cxr"],
+                                    "--mimic-cxr-jpg", corpus["mimic_cxr_jpg"],
+                                    "--output-dir", splits])
+        etl_ms = (time.perf_counter() - t) * 1e3
+        csvs = {n: os.path.join(splits, f"{n}.csv") for n in ("train", "valid", "test", "test-2")}
+        rows = {n: read_split_csv(p) for n, p in csvs.items()}
+        counts = {n: len(r) for n, r in rows.items()}
+        check(counts["train"] > 0 and counts["valid"] > 0 and counts["test"] >= BATCH
+              and counts["test-2"] >= BATCH, f"ETL rows {counts}")
+        for n, rs in rows.items():
+            for r in rs:
+                h, w = corpus["images"][r["mimic_image_file_path"]]
+                regions = len(r["bbox_labels"])
+                check(len(r["bbox_phrases"]) == 29
+                      and all(0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                              for x1, y1, x2, y2 in r["bbox_coordinates"])
+                      and (regions == 29 if n in ("valid", "test") else
+                           regions < 29 if n == "test-2" else regions <= 29)
+                      and (n == "train" or isinstance(r["reference_report"], str)),
+                      f"ETL row of {n}: {r['image_id']}")
+        log(f"offline (a) ETL: create_dataset over {len(corpus['images'])} header-only JPEGs "
+            f"of 40 studies: rows {counts} in {etl_ms:.1f} ms on the host")
+        out["etl"] = dict(rows=counts, host_ms=etl_ms, images=len(corpus["images"]))
+
+        # (b) statistics, CIDEr-D frequencies, the evaluate CLI with them
+        t = time.perf_counter()
+        stats = split_stats(rows["train"])
+        stats_ms = (time.perf_counter() - t) * 1e3
+        _, printed = quiet(dataset_stats.main, ["--csv", csvs["train"]])
+        check(json.loads(printed[printed.index("{"):]) == stats, "dataset_stats CLI printout")
+        with images_in_memory(arrays):
+            t = time.perf_counter()
+            mean, std = compute_mean_std([r["mimic_image_file_path"] for r in rows["train"]])
+            mean_std_ms = (time.perf_counter() - t) * 1e3
+        check(abs(mean - 0.5) < 0.01 and abs(std - 0.2887) < 0.01,
+              f"pixel mean/std {mean}, {std} of uniform uint8 X-rays")
+        df_path = os.path.join(OFFLINE_DIR, "cider_df.bin.gz")
+        t = time.perf_counter()
+        quiet(compute_cider_df.main, ["--valid-csv", csvs["valid"], "--output", df_path])
+        cider_df_ms = (time.perf_counter() - t) * 1e3
+        df, log_n = load_cider_doc_frequencies(df_path)
+        check(log_n == math.log(counts["valid"]) and df, "CIDEr-D frequencies")
+        log(f"offline (b) statistics of train.csv {stats} in {stats_ms:.2f} ms; pixel mean "
+            f"{mean:.5f} std {std:.5f} over {counts['train']} X-rays in {mean_std_ms:.0f} ms; "
+            f"CIDEr-D frequencies of {counts['valid']} valid reports ({len(df)} n-grams) in "
+            f"{cider_df_ms:.1f} ms")
+
+        params = RGRG(cfg).init(seed=0, device=dev, decoder_dtype=torch.bfloat16)
+        ckpt = os.path.join(OFFLINE_DIR, "params")
+        t = time.perf_counter()
+        save_checkpoint(ckpt, params)
+        save_s = time.perf_counter() - t
+        ckpt_gb = os.path.getsize(glob.glob(os.path.join(ckpt, "*"))[0]) / 1e9
+        del params
+        torch.cuda.empty_cache()
+        tok = report_tokenizer(cfg.decoder.vocab_size, cfg.decoder.eos_token_id,
+                               byte_level=True)
+        tok_dir = write_tokenizer_dir(tok, os.path.join(OFFLINE_DIR, "tokenizer"))
+
+        recorded, eval_ms = [], []
+        original_nlg, original_eval = nlg.compute_nlg_scores, evaluator.evaluate_model
+
+        def recording(metrics, generated, reference, **kw):
+            recorded.append((list(generated), list(reference), kw))
+            return original_nlg(metrics, generated, reference, **kw)
+        scores_path = os.path.join(OFFLINE_DIR, "eval", "scores.json")
+        os.makedirs(os.path.dirname(scores_path))
+        reset_counts()
+        nlg.compute_nlg_scores = recording
+        evaluator.evaluate_model = timed_calls(original_eval, eval_ms)
+        try:
+            with images_in_memory(arrays):
+                t = time.perf_counter()
+                quiet(evaluate.main, [
+                    "--checkpoint", ckpt, "--tokenizer-dir", tok_dir,
+                    "--test-csv", csvs["test"], csvs["test-2"], "--output", scores_path,
+                    "--batch-size", str(BATCH), "--num-beams", str(BEAMS),
+                    "--max-length", str(EVAL_MAX_LENGTH), "--num-figure-images", "0",
+                    "--cider-df", df_path, "--device", dev.type], cfg=cfg)
+                cli_eval_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            nlg.compute_nlg_scores, evaluator.evaluate_model = original_nlg, original_eval
+        eval_counts = read_counts()
+        check_beam(eval_counts, 2, "evaluate CLI")
+        with open(scores_path) as f:
+            scores = json.load(f)
+        check(len(recorded) == 2 and len(scores) == 2, "evaluate CLI: two splits scored")
+        ciders = []
+        for (gens, refs, kw), name in zip(recorded, ("test", "test-2")):
+            check(kw.get("cider_df") == df and kw.get("cider_log_n") == log_n,
+                  f"evaluate CLI: {name} not scored with the --cider-df file")
+            with_file = original_nlg(("cider",), gens, refs, cider_df=df, cider_log_n=log_n)
+            without = original_nlg(("cider",), gens, refs)
+            # each reference report scored against the next one: words in
+            # common, weighted by the file's frequencies or the split's own
+            swapped = refs[1:] + refs[:1]
+            cross_file = original_nlg(("cider",), swapped, refs, cider_df=df, cider_log_n=log_n)
+            cross_none = original_nlg(("cider",), swapped, refs)
+            got = scores[csvs[name]]["report"]["cider"]
+            check(got == with_file["cider"] and math.isfinite(got),
+                  f"evaluate CLI: {name} CIDEr-D {got} != {with_file['cider']}")
+            ciders.append(dict(split=name, cider_d=got, cider_d_without_file=without["cider"],
+                               references_vs_next=cross_file["cider"],
+                               references_vs_next_without_file=cross_none["cider"]))
+        log(f"offline (b) evaluate CLI: checkpoint directory ({ckpt_gb:.2f} GB, saved in "
+            f"{save_s:.1f} s), test.csv + test-2.csv, one batch of {BATCH} each, beam {BEAMS} "
+            f"max_length {EVAL_MAX_LENGTH}: ms per batch {['%.0f' % m for m in eval_ms]} "
+            f"(whole CLI {cli_eval_ms:.0f} ms with loading), launches {eval_counts}; CIDEr-D "
+            f"with the --cider-df file / without: "
+            + "; ".join(f"{c['split']} {c['cider_d']:.6f} / {c['cider_d_without_file']:.6f} "
+                        f"(each reference against the next {c['references_vs_next']:.4f}"
+                        f" / {c['references_vs_next_without_file']:.4f})"
+                        for c in ciders) + f" [{result['card']}]")
+        out["stats"] = dict(train=stats, stats_ms=stats_ms, pixel_mean=mean, pixel_std=std,
+                            mean_std_ms=mean_std_ms, cider_df_ms=cider_df_ms, ngrams=len(df))
+        out["evaluate_cli"] = dict(ms_per_batch=eval_ms, cli_ms=cli_eval_ms, launches=eval_counts,
+                                   cider=ciders, checkpoint_gb=ckpt_gb, save_s=save_s)
+        for k in launches:
+            launches[k] += eval_counts[k]
+
+        # (c) the product CLI at its defaults
+        images = [r["mimic_image_file_path"] for r in rows["test"] + rows["test-2"]]
+        images = images[:OFFLINE_IMAGES]
+        check(len(images) == OFFLINE_IMAGES, "not enough test X-rays for the CLI")
+        chunk_ms = []
+        original_gr = ReportGenerator.generate_reports
+
+        def timed_gr(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            reps = original_gr(self, *a, **kw)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t) * 1e3)
+            return reps
+        cli_out = os.path.join(OFFLINE_DIR, "generated_reports.txt")
+        reset_counts()
+        ReportGenerator.generate_reports = timed_gr
+        try:
+            with images_in_memory(arrays):
+                t = time.perf_counter()
+                _, printed = quiet(generate_cli.main, [
+                    "--checkpoint", ckpt, "--tokenizer-dir", tok_dir, "--images", *images,
+                    "--output", cli_out, "--device", dev.type], cfg=cfg)
+                cli_gen_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            ReportGenerator.generate_reports = original_gr
+        gen_counts = read_counts()
+        check_beam(gen_counts, OFFLINE_IMAGES // BATCH, "generate_reports CLI")
+        gen = evaluate.load_generator(ckpt, tok_dir, cfg, dev)
+        with images_in_memory(arrays):
+            want = [r for i in range(0, OFFLINE_IMAGES, BATCH)
+                    for r in gen.generate_reports(images[i:i + BATCH])]
+        want_out = os.path.join(OFFLINE_DIR, "want_reports.txt")
+        write_generated_reports_to_txt(images, want, want_out)
+        with open(cli_out) as f, open(want_out) as g:
+            got_lines, want_lines = f.read().splitlines(), g.read().splitlines()
+        check(got_lines == want_lines and len(got_lines) == 5 * OFFLINE_IMAGES,
+              "generate_reports CLI: its file differs from load_generator + generate_reports")
+        check(printed.count(":\n  ") == OFFLINE_IMAGES, "generate_reports CLI printout")
+        words = sum(len(r.report.split()) for r in want)
+        log(f"offline (c) generate_reports CLI: {OFFLINE_IMAGES} X-rays from the checkpoint "
+            f"directory at its defaults (beam {BEAMS}, max_length 300, batches of {BATCH}): ms "
+            f"per chunk {['%.0f' % m for m in chunk_ms]}, whole CLI {cli_gen_ms:.0f} ms with "
+            f"loading; launches {gen_counts}; file equal line for line to load_generator + "
+            f"generate_reports ({words} words in all) [{result['card']}]")
+        out["generate_reports_cli"] = dict(ms_per_chunk=chunk_ms, cli_ms=cli_gen_ms,
+                                           launches=gen_counts, words=words)
+        for k in launches:
+            launches[k] += gen_counts[k]
+
+        # (d) serving the checkpoint directory through K4
+        serve_dir = os.path.join(OFFLINE_DIR, "serve_images")
+        os.makedirs(serve_dir)
+        for i, p in enumerate(images):
+            q = os.path.join(serve_dir, f"{i:02d}.jpg")
+            header_only_jpeg(q, *corpus["images"][p])
+            arrays[q] = arrays[p]
+        marks = []
+        original_pipe = serving.generate_reports_pipelined
+
+        def marked(*a, **kw):
+            t0 = time.perf_counter()
+            for chunk in original_pipe(*a, **kw):
+                marks.append((time.perf_counter() - t0) * 1e3)
+                yield chunk
+        serve_out = os.path.join(OFFLINE_DIR, "served_reports.txt")
+        reset_counts()
+        serving.generate_reports_pipelined = marked
+        try:
+            with images_in_memory(arrays):
+                t = time.perf_counter()
+                quiet(serve_cli.main, [
+                    "--checkpoint", ckpt, "--tokenizer-dir", tok_dir, "--image-dir", serve_dir,
+                    "--pattern", "*.jpg", "--batch-size", str(BATCH),
+                    "--max-length", str(MAX_LENGTH), "--weights-int8", "pallas",
+                    "--output", serve_out, "--device", dev.type], cfg=cfg)
+                cli_serve_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            serving.generate_reports_pipelined = original_pipe
+        serve_counts = read_counts()
+        units = serve_counts["greedy_steps"] + serve_counts["prefills"]
+        check(serve_counts["nms"] == OFFLINE_IMAGES // BATCH
+              and serve_counts["roi_align"] == OFFLINE_IMAGES // BATCH * chunks
+              and serve_counts["beam_attention"] == 0 and serve_counts["greedy_steps"] > 0
+              and serve_counts["dense_wint8"] == 4 * layers * units,
+              f"serve CLI: launches {serve_counts}")
+        served = sorted(glob.glob(os.path.join(serve_dir, "*.jpg")))
+        gen2 = ReportGenerator.from_checkpoint(ckpt, tok_dir, cfg=cfg, device=dev)
+        with images_in_memory(arrays):
+            want = [r for c in original_pipe(gen2, served, batch_size=BATCH,
+                                             max_length=MAX_LENGTH, weights_int8="pallas")
+                    for r in c]
+        write_generated_reports_to_txt(served, want, want_out)
+        with open(serve_out) as f, open(want_out) as g:
+            check(f.read() == g.read(), "serve CLI: its file differs from from_checkpoint + "
+                  "generate_reports_pipelined")
+        del gen2
+        log(f"offline (d) serve CLI on the checkpoint directory: {OFFLINE_IMAGES} X-rays, "
+            f"{len(marks)} batches of {BATCH}, greedy max_length {MAX_LENGTH}, weights_int8 "
+            f"pallas: yields at {['%.0f' % m for m in marks]} ms, whole CLI "
+            f"{cli_serve_ms:.0f} ms with loading; launches {serve_counts} (K4 = {4 * layers} x "
+            f"{units} decode steps + prefills); file equal to from_checkpoint + "
+            f"generate_reports_pipelined [{result['card']}]")
+        out["serve_cli"] = dict(yield_ms=marks, cli_ms=cli_serve_ms, launches=serve_counts)
+        for k in launches:
+            launches[k] += serve_counts[k]
+
+        # (e) one request under utils/logging.trace; the parameter summary
+        trace_dir = os.path.join(OFFLINE_DIR, "trace")
+        reset_counts()
+        with images_in_memory(arrays):
+            t = time.perf_counter()
+            with trace(trace_dir):
+                traced = gen.generate_reports(images[:BATCH], max_length=TRACE_MAX_LENGTH)
+            traced_ms = (time.perf_counter() - t) * 1e3
+        trace_counts = read_counts()
+        check_beam(trace_counts, 1, "traced request")
+        check(len(traced) == BATCH, "traced request: reports")
+        files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        check(len(files) == 1, f"trace: files {files}")
+        trace_mb = os.path.getsize(files[0]) / 1e6
+        with open(files[0]) as f:
+            text = f.read()
+        named = {k: text.count(k) for k in KERNEL_NAMES}
+        check(all(named.values()), f"trace: kernel names {named}")
+        for k in launches:
+            launches[k] += trace_counts[k]
+        summary = summarize(gen.params)
+        groups = param_counts(gen.params)
+        total = int(summary.splitlines()[-1].split()[-1].replace(",", ""))
+        numel = (sum(p.numel() for p in gen.params["detector"].parameters())
+                 + sum(t.numel() for t in _tensors(gen.params["decoder"])))
+        check(total == numel == sum(groups.values()), f"summarize total {total} != {numel}")
+        log(f"offline (e) trace of one beam-{BEAMS} request of {BATCH} (max_length "
+            f"{TRACE_MAX_LENGTH}): {traced_ms:.0f} ms traced, {trace_mb:.1f} MB, kernel name "
+            f"mentions {named}, launches {trace_counts}; summarize: {total:,d} parameters "
+            f"(= the sum of numel), {len(groups)} groups at depth 2 [{result['card']}]")
+        for line in summary.splitlines():
+            log(f"  {line}")
+        out["trace"] = dict(ms=traced_ms, mb=trace_mb, kernel_mentions=named,
+                            launches=trace_counts)
+        out["parameters"] = total
+        del gen
+    finally:
+        shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    log(f"offline: phase 20 took {out['seconds']:.1f} s; launches {launches}")
+    result["offline"] = out
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2778,6 +3172,7 @@ def main() -> int:
     train_launches = phase_train_full_width(np, torch, dev, result)
     cli_launches = phase_train_cli(np, torch, dev, result)
     phase_chexbert_train(np, torch, dev, result)
+    offline_launches = phase_offline(np, torch, dev, result)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]
@@ -2789,19 +3184,21 @@ def main() -> int:
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
          "replaces": "rgrg_tpu/ops/nms_pallas.py:52",
-         "launches": launches["nms"] + train_launches["nms"] + cli_launches["nms"],
+         "launches": launches["nms"] + train_launches["nms"] + cli_launches["nms"]
+                     + offline_launches["nms"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
          "train_ms": k1t["ms"], "train_bound_ms": k1t["bound_ms"],
          "shape": "B=8 x N=1000 (serving); train_*: B=16 x N=2000; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
-                  "and the evaluation of its checkpoint"},
+                  "and the evaluation of its checkpoint, and phase 20's evaluate, "
+                  "generate_reports and serve CLIs and traced request"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
          "launches": launches["roi_align"] + train_launches["roi_align"]
-                     + cli_launches["roi_align"],
+                     + cli_launches["roi_align"] + offline_launches["roi_align"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -2811,12 +3208,13 @@ def main() -> int:
          "shape": "B=8 x 256 RoIs, bf16 features (serving); train_*: B=16 x 256 RoIs, "
                   "f32, the backward a torch.bmm over the fused weights; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
-                  "and the evaluation of its checkpoint"},
+                  "and the evaluation of its checkpoint, and phase 20's evaluate, "
+                  "generate_reports and serve CLIs and traced request"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
          "launches": launches["beam_attention"] + no_image_launches
-                     + cli_launches["beam_attention"],
+                     + cli_launches["beam_attention"] + offline_launches["beam_attention"],
          "max_abs_err": max(k3["max_abs_err"], k3t0["max_abs_err"]),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "warm_ms": k3["warm_ms"],
@@ -2826,15 +3224,18 @@ def main() -> int:
                   "cache; ms cold (caches cycled past the L2), warm_ms relaunched on one; "
                   "t0_*: from slot 1 (the no_image decode), slot 31, and 256 lanes x 305 "
                   "slots at slot 303; launches: the beam-4 serving requests, the no_image "
-                  "beam and the evaluation of the train CLI's checkpoint"},
+                  "beam, the evaluation of the train CLI's checkpoint, and phase 20's "
+                  "evaluate and generate_reports CLIs (max_length 300) and traced request"},
         {"name": "dense_wint8", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
          "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",
-         "launches": k4_launches, "max_abs_err": k4["max_abs_err"],
+         "launches": k4_launches + offline_launches["dense_wint8"],
+         "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
          "shape": "mean of one layer's 4 products, M=64, bf16 x; library_ms: "
-                  "torch.addmm over dequantised bf16 weights (weights_int8=False)"},
+                  "torch.addmm over dequantised bf16 weights (weights_int8=False); "
+                  "launches: the 'pallas' serving run and phase 20's serve CLI"},
     ]}
     result["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -17,7 +17,12 @@ step attends through the ancestry table (kernel K3, csrc/beam_attn.cu);
 num_beams=1 is greedy. serving.generate_reports_pipelined overlaps host
 work with the card and can serve the decoder's matmul weights as
 weight-only int8 (kernel K4, csrc/dense_wint8.cu); `python -m
-rgrg_tpu_torch.serve` serves a directory from a reference `.pt`.
+rgrg_tpu_torch.serve` serves a directory of X-rays and `python -m
+rgrg_tpu_torch.generate_reports` a list of them, from a reference `.pt` or
+a checkpoint directory. Offline, `python -m rgrg_tpu_torch.create_dataset`
+builds the split csvs from Chest ImaGenome + MIMIC-CXR (data/etl.py),
+`dataset_stats` and `compute_cider_df` compute their statistics and the
+CIDEr-D frequencies the evaluation reads.
 
 Tests on the CPU: JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py
 On the card: python3 chip_smoke.py

@@ -3,7 +3,9 @@
     python -m rgrg_tpu_torch.serve --checkpoint full_model.pt \\
         --tokenizer-dir gpt2/ --image-dir xrays/ --pattern '*.png'
 
-Loads a reference `.pt` checkpoint, serves the images through
+Loads a reference `.pt`/`.pth` or a checkpoint directory
+(core/checkpoint.save_checkpoint: a training run's <run_dir>/last or best,
+or a bare params tree), serves the images through
 serving.generate_reports_pipelined (preprocessing, device work and report
 assembly overlap) and writes the reports in the reference's text format.
 Runs on the card unless `--device cpu` is given.
@@ -19,7 +21,8 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--checkpoint", required=True, help="reference .pt/.pth checkpoint")
+    ap.add_argument("--checkpoint", required=True,
+                    help="reference .pt/.pth, or a checkpoint directory")
     ap.add_argument("--tokenizer-dir", required=True)
     ap.add_argument("--image-dir", required=True)
     ap.add_argument("--pattern", default="*.jpg")
@@ -40,16 +43,15 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
+def main(argv=None, cfg=None) -> None:
+    """`cfg`: the ModelConfig the checkpoint was built for (default the
+    reference's)."""
     args = build_parser().parse_args(argv)
-    if not args.checkpoint.endswith((".pt", ".pth")):
-        raise SystemExit(f"--checkpoint must be a .pt/.pth file, got {args.checkpoint}")
-
-    from rgrg_tpu_torch.inference import ReportGenerator, write_generated_reports_to_txt
+    from rgrg_tpu_torch.evaluate import load_generator
+    from rgrg_tpu_torch.inference import write_generated_reports_to_txt
     from rgrg_tpu_torch.serving import generate_reports_pipelined
 
-    gen = ReportGenerator.from_torch_checkpoint(args.checkpoint, args.tokenizer_dir,
-                                                device=args.device)
+    gen = load_generator(args.checkpoint, args.tokenizer_dir, cfg, args.device)
     images = sorted(glob.glob(os.path.join(args.image_dir, args.pattern)))
     print(f"{len(images)} images")
     t0 = time.perf_counter()

@@ -10,16 +10,25 @@ name, HF Conv1D layouts, a uniform DataParallel "module." prefix and the
   leaf, and `ReportGenerator.from_torch_checkpoint` gives JAX's reports on
   the same file and image paths (host preprocessing, JAX pointed at the
   test-built C++ library as in tests/test_torch_preprocess.py).
+- `python -m rgrg_tpu_torch.generate_reports` writes (and prints) what
+  scripts/generate_reports.py writes, two chunks of two X-rays of two
+  shapes; the checkpoint-directory route (`core/checkpoint.save_checkpoint`
+  of the loaded params) writes the file the `.pt` route writes.
 - `python -m rgrg_tpu_torch.serve` writes the same report file as
-  scripts/serve.py on two PNGs. Both CLIs build the default (GPT-2 Medium)
-  config, so the tests hand their constructors SMOKE_CFG at run time.
+  scripts/serve.py on two PNGs, and serves a checkpoint directory as
+  `ReportGenerator.from_checkpoint` plus `generate_reports_pipelined` do.
+  The JAX CLIs build the default (GPT-2 Medium) config, so the tests hand
+  JAX's constructor SMOKE_CFG at run time and the port's `main` its config
+  (`cfg=`).
 
 Images are the first seeded ones whose detector and greedy decisions clear
 the two libraries' f32 disagreement (tests/torch_parity.py).
 """
 
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import pathlib
 import sys
 
@@ -34,11 +43,14 @@ from rgrg_tpu.core.checkpoint import convert_full_checkpoint as j_convert
 from rgrg_tpu.inference import ReportGenerator as JReportGenerator
 from rgrg_tpu.models.full_model import RGRG as JRGRG
 
+import rgrg_tpu_torch.generate_reports as tgen
 import rgrg_tpu_torch.serve as tserve
 from rgrg_tpu_torch.core import config as TC
-from rgrg_tpu_torch.core.checkpoint import convert_full_checkpoint, load_torch_checkpoint
-from rgrg_tpu_torch.inference import ReportGenerator
+from rgrg_tpu_torch.core.checkpoint import (convert_full_checkpoint, load_torch_checkpoint,
+                                            save_checkpoint)
+from rgrg_tpu_torch.inference import ReportGenerator, write_generated_reports_to_txt
 from rgrg_tpu_torch.models.full_model import RGRG
+from rgrg_tpu_torch.serving import generate_reports_pipelined
 
 from tests.test_full_model import SMOKE_CFG
 from tests.test_torch_preprocess import native_lib  # noqa: F401  (fixture)
@@ -52,6 +64,11 @@ PORT_CFG = TC.ModelConfig(
     detector=TC.DetectorConfig(rpn=TC.RPNConfig(pre_nms_top_n_test=32)),
     decoder=TC.DecoderConfig(**{f.name: getattr(SMOKE_CFG.decoder, f.name)
                                 for f in dataclasses.fields(TC.DecoderConfig)}))
+
+
+@pytest.fixture(autouse=True)
+def exact_dedup(monkeypatch):
+    monkeypatch.delenv("RGRG_DISTILBERT_DIR", raising=False)
 
 
 def _images_with_margins(gen, shape, count):
@@ -122,6 +139,87 @@ def test_from_torch_checkpoint_reports_identical_to_jax(ckpt, native_lib, monkey
         np.testing.assert_array_equal(g.selected_regions, w.selected_regions)
 
 
+def _images(ckpt):
+    return ckpt["images"][(1024, 768)] + ckpt["images"][(700, 600)]
+
+
+def _args(ckpt, checkpoint, output):
+    return ["--checkpoint", checkpoint, "--tokenizer-dir", ckpt["tok_dir"],
+            "--images", *_images(ckpt), "--output", str(output), "--batch-size", "2",
+            "--num-beams", "1", "--max-length", str(MAX_LEN)]
+
+
+@pytest.fixture(scope="module")
+def port_pt_run(ckpt, tmp_path_factory):
+    """The port CLI's report file and printout from the `.pt`."""
+    out = tmp_path_factory.mktemp("port") / "port.txt"
+    capture = io.StringIO()
+    with contextlib.redirect_stdout(capture):
+        tgen.main(_args(ckpt, ckpt["path"], out) + ["--device", "cpu"], cfg=PORT_CFG)
+    return out.read_text(), capture.getvalue().replace(str(out), "<output>")
+
+
+def test_generate_reports_cli_writes_same_file_as_jax(ckpt, port_pt_run, native_lib,
+                                                      monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(jnative, "_LIB_PATHS", [native_lib])
+    monkeypatch.setattr(jnative, "_lib", None)
+    j_from = JReportGenerator.from_torch_checkpoint.__func__
+    monkeypatch.setattr(JReportGenerator, "from_torch_checkpoint", classmethod(
+        lambda cls, path, tok, **kw: j_from(cls, path, tok, cfg=SMOKE_CFG,
+                                            similarity_fn=None)))
+    spec = importlib.util.spec_from_file_location(
+        "generate_reports_cli", ROOT / "scripts" / "generate_reports.py")
+    jcli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jcli)
+    want = tmp_path / "jax.txt"
+    monkeypatch.setattr(sys, "argv", ["generate_reports.py"] + _args(ckpt, ckpt["path"], want))
+    capsys.readouterr()
+    jcli.main()
+    want_out = capsys.readouterr().out
+
+    text, printed = port_pt_run
+    assert text == want.read_text()
+    assert printed == want_out.replace(str(want), "<output>")
+    assert text.count("Image path: ") == 4 and text.count("Generated report: ") == 4
+    assert any(len(line) > len("Generated report: ") for line in text.splitlines()
+               if line.startswith("Generated report: "))
+    defaults = tgen.build_parser().parse_args(["--checkpoint", "c", "--tokenizer-dir", "t",
+                                               "--images", "a.png"])
+    assert (defaults.num_beams, defaults.max_length, defaults.batch_size, defaults.device,
+            defaults.no_early_stopping) == (4, 300, 8, "cuda", False)
+
+
+def test_generate_reports_cli_checkpoint_directory_equals_pt(ckpt, port_pt_run, tmp_path):
+    directory = tmp_path / "params"
+    save_checkpoint(str(directory), ckpt["gen"].params)
+    from_dir = tmp_path / "dir.txt"
+    tgen.main(_args(ckpt, str(directory), from_dir) + ["--device", "cpu"], cfg=PORT_CFG)
+    assert from_dir.read_text() == port_pt_run[0]
+    assert port_pt_run[0].count("Image path: ") == 4
+
+
+def test_serve_cli_serves_a_checkpoint_directory(ckpt, tmp_path):
+    directory = tmp_path / "params"
+    save_checkpoint(str(directory), ckpt["gen"].params)
+    got = tmp_path / "served.txt"
+    tserve.main(["--checkpoint", str(directory), "--tokenizer-dir", ckpt["tok_dir"],
+                 "--image-dir", str(ckpt["dir"]), "--pattern", "*.png", "--batch-size", "2",
+                 "--max-length", str(MAX_LEN), "--output", str(got), "--device", "cpu"],
+                cfg=PORT_CFG)
+
+    gen = ReportGenerator.from_checkpoint(str(directory), ckpt["tok_dir"], cfg=PORT_CFG,
+                                          device="cpu")
+    images = sorted(str(p) for p in pathlib.Path(ckpt["dir"]).glob("*.png"))
+    assert len(images) == 4
+    reports = [r for batch in generate_reports_pipelined(gen, images, batch_size=2,
+                                                         max_length=MAX_LEN)
+               for r in batch]
+    want = tmp_path / "want.txt"
+    write_generated_reports_to_txt(images, reports, str(want))
+    assert got.read_text() == want.read_text()
+    assert any(r.region_sentences for r in reports)
+
+
 def test_serve_cli_writes_same_file_as_jax(ckpt, monkeypatch):
     image_dir = ckpt["dir"]
     for p in ckpt["images"][(700, 600)]:  # serve only the 1024x768 pair
@@ -134,9 +232,6 @@ def test_serve_cli_writes_same_file_as_jax(ckpt, monkeypatch):
     monkeypatch.setattr(JReportGenerator, "from_torch_checkpoint", classmethod(
         lambda cls, path, tok, **kw: j_from(cls, path, tok, cfg=SMOKE_CFG,
                                             similarity_fn=None)))
-    t_from = ReportGenerator.from_torch_checkpoint.__func__
-    monkeypatch.setattr(ReportGenerator, "from_torch_checkpoint", classmethod(
-        lambda cls, path, tok, **kw: t_from(cls, path, tok, cfg=PORT_CFG, **kw)))
 
     spec = importlib.util.spec_from_file_location("serve_cli", ROOT / "scripts" / "serve.py")
     jserve = importlib.util.module_from_spec(spec)
@@ -145,7 +240,7 @@ def test_serve_cli_writes_same_file_as_jax(ckpt, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["serve.py"] + args + ["--output", str(want_path)])
     jserve.main()
     got_path = image_dir / "port.txt"
-    tserve.main(args + ["--output", str(got_path), "--device", "cpu"])
+    tserve.main(args + ["--output", str(got_path), "--device", "cpu"], cfg=PORT_CFG)
 
     text = got_path.read_text()
     assert text == want_path.read_text()
