@@ -146,6 +146,26 @@ Phases (any failed check raises and the script exits non-zero):
      utils/logging.trace (the trace names K1-K3) and `summarize` of the
      parameters; K1-K4 counters checked at each entry point.
 
+  21. the data-parallel mesh (`phase_mesh`, core/mesh.py): ranks started by
+     core.mesh.launch (spawned processes, a FileStore rendezvous) after the
+     kernels are built, each loading a checkpoint directory of the main
+     path's full-width weights; per world 2 greedy batches of 8 uint8
+     2048x2500 X-rays (max_length 60, weights_int8 "pallas", int8 KV cache)
+     and 1 beam-4 batch through generate_reports_pipelined(mesh=), then 4
+     mini-steps (one update) of train.loop.train at RGRGConfig() (global
+     batch 16, f32), at world 1 (NCCL), world 2 (two gloo ranks sharing
+     the card) and, with 2+ cards, world min(count, 4) (NCCL): every
+     rank's reports equal to its own shards served without a mesh, each
+     rank's K1-K4 counters as its shard needs them, parameters bitwise
+     equal across ranks and within 2 x lr of world 1's, BN statistics
+     1e-5; phase 14(c)'s margin-checked small training step against world
+     1 (losses 1e-4, parameters 2 x lr, gradients 1e-1); the
+     full-width reports' and first losses' agreement with world 1
+     measured (another batch per card can flip near-ties); ms per batch
+     and per mini-step, peak GB per rank.
+     `python3 chip_smoke.py --mesh-only` builds the kernels and runs phase
+     21 alone (details in chiprun_out/chip_smoke_mesh.json).
+
 TF32 is off for the whole run (the f32 training numbers are without it). Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Full numbers also go to
@@ -3108,6 +3128,680 @@ def phase_offline(np, torch, dev, result):
     return launches
 
 
+# ------------------------------------------------------------------ slice 12
+
+MESH_DIR = os.path.join(ROOT, "build", "smoke_mesh")
+MESH_BATCHES = 2         # greedy batches of 8 served by each world
+MESH_TRAIN_STEPS = 4     # mini-steps of train.loop.train by each world: one update
+MESH_TIMEOUT_S = 300     # the process group's collective timeout
+MESH_REF_SEED = 52       # the small step's 4 images: margins and traps asserted
+MESH_REF_BUDGET = 16     # its LM budget, below the batch's LM-valid rows
+
+
+def reference_training_batch(np, torch, seed=None, b=2):
+    """Phase 14(c)'s small training batch (`b` images) and its sampling
+    draws: `seed`, or the first seed whose decisions clear TRAINING_MARGINS
+    for train_small_config's params seeded 5 on the CPU."""
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.train import trainer
+    from tests.torch_parity import TRAINING_MARGINS, training_margins
+    cfg = train_small_config()
+    n_anchors = cfg.detector.anchors.num_anchors_per_location * 256
+    n_pool = cfg.detector.rpn.pre_nms_top_n(True) + 29
+    det = RGRG(cfg).init(seed=5, device=torch.device("cpu"))["detector"]
+    for s in ([seed] if seed is not None else range(40)):
+        batch = train_batch(np, s, b, 16, cfg.decoder.vocab_size)
+        draws = sampling_draws(np, s, b, n_anchors, n_pool)
+        t = trainer.batch_to_device(batch, torch.device("cpu"))
+        m = training_margins(det, t["images"], t["gt_boxes"], t["gt_labels"], t["gt_valid"],
+                             draws[2:])
+        if all(m[k] >= v for k, v in TRAINING_MARGINS.items()):
+            return batch, draws, s
+    raise RuntimeError("check failed: no seeded training batch with decision margins")
+
+
+def mesh_counts():
+    """K1-K4 launch counters and the decode step counters, in this process."""
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.decode.greedy import greedy_generate
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    return {"nms": nms_keep_mask.launches, "roi_align": roi_align.launches,
+            "beam_attention": beam_attention.launches, "dense_wint8": dense_wint8.launches,
+            "beam_steps": beam_generate.steps, "greedy_steps": greedy_generate.steps,
+            "prefills": greedy_generate.prefills}
+
+
+def reset_mesh_counts():
+    from rgrg_tpu_torch.decode.beam import beam_generate
+    from rgrg_tpu_torch.decode.greedy import greedy_generate
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention
+    from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask
+    from rgrg_tpu_torch.ops.roi_align import roi_align
+    nms_keep_mask.launches = roi_align.launches = beam_attention.launches = 0
+    dense_wint8.launches = beam_generate.steps = 0
+    greedy_generate.steps = greedy_generate.prefills = 0
+
+
+def params_digest(torch, tensors):
+    """One hash of the tensors' bytes (any dtype): ranks compare
+    parameters bit for bit."""
+    import hashlib
+    h = hashlib.blake2b()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_serve(np, torch, dev, mesh, job):
+    """A rank's data-parallel serving: the params replicated from rank 0
+    once after loading, as serve.py does (timed; their digest must stay as
+    loaded), a warm-up batch through the mesh, then per call the same requests without a mesh over this rank's own
+    shards (batch_size 8 / world, in order: the shapes and row budgets its
+    mesh call meets; at world 1 simply the calls without a mesh), then the
+    mesh call with the counters from 0."""
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.inference import ReportGenerator
+    from rgrg_tpu_torch.serving import generate_reports_pipelined
+
+    gen = ReportGenerator.from_checkpoint(job["ckpt"], job["tok_dir"], cfg=job["cfg"],
+                                          device=dev)
+
+    def digest():
+        return params_digest(torch, list(gen.params["detector"].state_dict().values())
+                             + _tensors(gen.params["decoder"]))
+    images = list(np.random.default_rng(41).integers(
+        0, 256, (MESH_BATCHES * BATCH, *job["raw_shape"]), dtype=np.uint8))
+    per = BATCH // mesh.size
+    common = dict(max_length=job["max_length"], weights_int8="pallas")
+    calls = {"greedy": (images, 1), "beam": (images[:BATCH], BEAMS)}
+    out = {"digest_loaded": digest()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mesh_lib.replicate_pytree(gen.params, mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["replicate_ms"] = (time.perf_counter() - t0) * 1e3
+    out["digest_replicated"] = digest()
+    list(generate_reports_pipelined(gen, images[:BATCH], batch_size=BATCH, mesh=mesh,
+                                    **common))  # warm-up
+    for name, (imgs, beams) in calls.items():
+        own = [im for i in range(0, len(imgs), BATCH)
+               for im in imgs[i + mesh.rank * per:i + (mesh.rank + 1) * per]]
+        row = {"own": [r.report for c in generate_reports_pipelined(
+            gen, own, batch_size=per, num_beams=beams, **common) for r in c]}
+        reset_mesh_counts()
+        reports, marks = [], []
+        t0 = time.perf_counter()
+        for chunk in generate_reports_pipelined(gen, imgs, batch_size=BATCH, mesh=mesh,
+                                                num_beams=beams, **common):
+            reports += chunk
+            marks.append((time.perf_counter() - t0) * 1e3)
+        row.update(reports=[r.report for r in reports],
+                   selected=[r.selected_regions.tolist() for r in reports],
+                   sentences=[list(r.region_sentences.values()) for r in reports],
+                   yield_ms=marks, counts=mesh_counts())
+        out[name] = row
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+                      else None)
+    del gen
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def interleaved(rank_lists, per):
+    """The ranks' own-shard reports in image order: per global batch, each
+    rank's `per` in rank order."""
+    out = []
+    for i in range(0, len(rank_lists[0]), per):
+        for lst in rank_lists:
+            out += lst[i:i + per]
+    return out
+
+
+def world_agreement(rows, ref):
+    """How far a world's reports are from world 1's: identical reports and
+    selections, and for the others the first region sentence that differs."""
+    diff = []
+    for i, (a, b) in enumerate(zip(rows["reports"], ref["reports"])):
+        if a != b:
+            sa, sb = rows["sentences"][i], ref["sentences"][i]
+            first = next((k for k, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                         min(len(sa), len(sb)))
+            diff.append(dict(image=i, same_selection=rows["selected"][i] == ref["selected"][i],
+                             sentences=(len(sa), len(sb)), first_differing_sentence=first))
+    return dict(identical=len(rows["reports"]) - len(diff), of=len(rows["reports"]),
+                same_selections=sum(a == b for a, b in zip(rows["selected"], ref["selected"])),
+                differing=diff)
+
+
+def first_losses_witness(torch, dev, cfg, batch, lm_budget):
+    """World 1's first mini-step losses as train.loop.train computes them
+    (its initial params, draws and dropout seeds), forward only, once with
+    cuDNN's convolutions and once with PyTorch's own (cuDNN off): the same
+    math rounded another way. Returns both and their relative gap."""
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.train import trainer
+    model = RGRG(cfg.model)
+    state = trainer.init_train_state(model, cfg.train.seed, cfg.train, stage=3, device=dev)
+    runs = []
+    for cudnn in (True, False):
+        rng = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
+        with torch.cuda.device(dev):
+            torch.cuda.manual_seed(cfg.train.seed + 2)
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with torch.no_grad():
+                _, losses = trainer.compute_losses(model, state.params,
+                                                   trainer.batch_to_device(batch, dev), rng, 3,
+                                                   cfg.train, lm_budget)
+        finally:
+            torch.backends.cudnn.enabled = True
+        runs.append({k: float(v) for k, v in losses.items()})
+    del state
+    torch.cuda.empty_cache()
+    return {"cudnn": runs[0], "native": runs[1],
+            "gap": {k: abs(runs[1][k] - v) / max(abs(v), 1e-6) for k, v in runs[0].items()}}
+
+
+def mesh_train(np, torch, dev, mesh, job):
+    """A rank's part of train.loop.train over the same global batches: the
+    first mini-step's losses, ms per mini-step, launches, peak memory, the
+    trained tensors' digest, and (world 1) a file of its trained tensors
+    and BatchNorm statistics, or (a larger world, rank 0) their largest
+    differences to that file."""
+    import shutil
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.train import loop, trainer
+
+    cfg = job["train_cfg"]
+    b = cfg.train.batch_size
+    batches = [train_batch(np, 300 + i, b, job["train_seq"], cfg.model.decoder.vocab_size,
+                           size=cfg.model.detector.image_size)
+               for i in range(MESH_TRAIN_STEPS)]
+    first, marks = [], []
+    make_step = trainer.make_train_step
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng):
+            state, losses = step(state, batch, rng)
+            if not first:
+                first.append({k: float(v) for k, v in losses.items()})
+            return state, losses
+        return run
+
+    def feed():
+        for batch in batches:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            marks.append(time.perf_counter())
+            yield batch
+
+    witness = (first_losses_witness(torch, dev, cfg, batches[0], job["lm_budget"])
+               if mesh.size == 1 and dev.type == "cuda" else None)
+    run_dir = os.path.join(job["dir"], f"train_world{mesh.size}")
+    reset_mesh_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer.make_train_step = recording_step
+    try:
+        state = loop.train(RGRG(cfg.model), cfg, feed, run_dir, stage=3,
+                           lm_budget=job["lm_budget"], max_steps=MESH_TRAIN_STEPS, device=dev)
+    finally:
+        trainer.make_train_step = make_step
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    marks.append(time.perf_counter())
+    out = {"first_losses": first[0], "counts": mesh_counts(),
+           "ms": [(marks[i + 1] - marks[i]) * 1e3 for i in range(len(marks) - 1)],
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+                       else None),
+           "update": state.opt_state.mini_step == 0 and state.step == MESH_TRAIN_STEPS,
+           "witness": witness,
+           "digest": params_digest(torch, state.opt_state.tensors)}
+    stats = {k: v for k, v in state.params["detector"].named_buffers() if "running" in k}
+    ref_path = os.path.join(job["dir"], "train_world1.pt")
+    if mesh.size == 1:
+        torch.save({"params": [t.detach().cpu() for t in state.opt_state.tensors],
+                    "stats": {k: v.cpu() for k, v in stats.items()}}, ref_path)
+    elif mesh.rank == 0:
+        ref = torch.load(ref_path)
+        out["param_diff"] = max((a.detach().cpu() - r).abs().max().item()
+                                for a, r in zip(state.opt_state.tensors, ref["params"]))
+        out["bn_err"] = max((stats[k].cpu() - r).abs().max().item()
+                            / max(1.0, r.abs().max().item()) for k, r in ref["stats"].items())
+    del state
+    mesh_lib.barrier(mesh)   # world 1's file and every rank's run are done
+    if mesh.rank == 0:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grad_rel_all(torch, grads, ref):
+    """Relative L2 distance of two gradients, each the concatenation of
+    its tensors."""
+    num = sum((g.double() - r.double()).norm().item() ** 2 for g, r in zip(grads, ref))
+    den = sum(r.double().norm().item() ** 2 for r in ref)
+    return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+
+def small_reference_params(torch, dev, base=None):
+    """train_small_config's params seeded 5 on the CPU (the params whose
+    decisions TRAINING_MARGINS was checked against), or a copy of `base`
+    (such params), on `dev`: a generator on the card draws other values."""
+    import copy
+    from rgrg_tpu_torch.models.full_model import RGRG
+    if base is None:
+        base = RGRG(train_small_config()).init(seed=5, device=torch.device("cpu"))
+        if dev.type == "cpu":
+            return base
+    return {"detector": copy.deepcopy(base["detector"]).to(dev),
+            "decoder": _tree_map(base["decoder"], lambda t: t.to(dev, copy=True))}
+
+
+def mesh_reference_naive(np, torch, dev, batch, draws, budget):
+    """The small reference step's inputs and yardsticks, from the same
+    params (small_reference_params): whether the global batch of 4
+    shows the traps of a naive data-parallel port on `dev` (its LM-valid
+    rows exceed `budget`, the halves hold different numbers of valid
+    target tokens, each half's first BatchNorm statistics differ from the
+    batch's); the naive port's step on `dev` (each half alone: its own
+    BatchNorm statistics, draws, LM compaction and means; losses and
+    gradients averaged over the halves, as a DDP averages them); and the
+    global step on the CPU, whose distance to world 1 on the card shows
+    how far f32 rounding alone moves the gradients."""
+    from rgrg_tpu_torch.core import config as TC
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.train import trainer
+    cfg = train_small_config()
+    model = RGRG(cfg)
+    tc1 = TC.TrainConfig(grad_accumulation_steps=1)
+    base = small_reference_params(torch, torch.device("cpu"))
+
+    def step(d, rows):
+        params = small_reference_params(torch, d, base)
+        opt = trainer.make_optimizer(params, tc1, stage=3)
+        part = trainer.batch_to_device({k: v[rows] for k, v in batch.items()}, d)
+        total, losses = trainer.compute_losses(model, params, part, iter([x[rows] for x in draws]),
+                                               3, tc1, budget)
+        total.backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                [t.grad.detach().to("cpu", copy=True) if t.grad is not None
+                 else torch.zeros(t.shape) for t in opt.tensors])
+
+    det = small_reference_params(torch, dev, base)["detector"]
+    t = trainer.batch_to_device(batch, dev)
+    with torch.no_grad():
+        _, aux = det.train_forward(t["images"], t["gt_boxes"], t["gt_labels"], t["gt_valid"],
+                                   iter(draws))
+        valid = aux["class_detected"] & t["region_has_sentence"]
+        tokens = (t["attention_mask"][..., 1:] * valid[..., None]).sum(dim=(1, 2))
+        x = det.backbone.conv1(t["images"].permute(0, 3, 1, 2))
+        whole = x.mean(dim=(0, 2, 3))
+        bn_gap = min((x[h].mean(dim=(0, 2, 3)) - whole).abs().max().item()
+                     for h in (slice(0, 2), slice(2, 4)))
+    traps = {"lm_valid_rows": int(valid.sum()), "budget": budget,
+             "half_tokens": [float(tokens[:2].sum()), float(tokens[2:].sum())],
+             "half_bn_gap": bn_gap}
+    halves = [step(dev, rows) for rows in (slice(0, 2), slice(2, 4))]
+    naive_losses = {k: (halves[0][0][k] + halves[1][0][k]) / 2 for k in halves[0][0]}
+    naive_grads = [(a + b) / 2 for a, b in zip(halves[0][1], halves[1][1])]
+    cpu_losses, cpu_grads = step(torch.device("cpu"), slice(0, 4))
+    return traps, {"losses": naive_losses, "grads": naive_grads, "cpu_losses": cpu_losses,
+                   "cpu_grads": cpu_grads}
+
+
+def mesh_reference_step(np, torch, dev, mesh, job):
+    """One stage-3 mini-step (an AdamW update at accumulation 1) of the
+    small training model (small_reference_params) on this
+    rank's rows of a global batch of 4 distinct images whose decisions
+    clear TRAINING_MARGINS, its sampling draws replayed: the losses, the
+    all-reduced gradients' and the trained tensors' digests, the
+    gradients' distance to the CPU's global step (mesh_reference_naive),
+    and (world 1) a file of the gradients, tensors and BatchNorm
+    statistics, or (a larger world) their distances to that file and the
+    naive port's distances to it."""
+    from rgrg_tpu_torch.core import config as TC
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.models.full_model import RGRG
+    from rgrg_tpu_torch.train import trainer
+
+    cfg = train_small_config()
+    params = small_reference_params(torch, dev)
+    tc1 = TC.TrainConfig(grad_accumulation_steps=1)
+    state = trainer.TrainState(params, trainer.make_optimizer(params, tc1, stage=3), 0)
+    opt = state.opt_state
+    grads = []
+    adamw_step = opt.adamw.step
+
+    def recording_step():
+        grads.extend(t.grad.detach().to("cpu", copy=True) for t in opt.tensors)
+        return adamw_step()
+    opt.adamw.step = recording_step
+    step = trainer.make_train_step(RGRG(cfg), tc1, stage=3, lm_budget=MESH_REF_BUDGET,
+                                   mesh=mesh)
+    state, losses = step(state, mesh_lib.shard_pytree_batch(job["ref_batch"], mesh),
+                         iter(job["ref_draws"]))
+    names = [n for n, _ in params["detector"].named_parameters()]
+    names += [f"decoder trainable {i}" for i in range(len(grads) - len(names))]
+    tensors = [t.detach().cpu() for t in opt.tensors]
+    stats = {k: v.cpu() for k, v in params["detector"].named_buffers() if "running" in k}
+    naive = torch.load(os.path.join(job["dir"], "reference_naive.pt"))
+    out = {"losses": {k: float(v) for k, v in losses.items()},
+           "digest": params_digest(torch, tensors), "grad_digest": params_digest(torch, grads),
+           "cpu_rel": {n: _rel_l2(torch, g, r) for n, g, r in zip(names, grads,
+                                                                  naive["cpu_grads"])},
+           "cpu_rel_all": _grad_rel_all(torch, grads, naive["cpu_grads"])}
+    path = os.path.join(job["dir"], "reference_step_world1.pt")
+    if mesh.size == 1:
+        torch.save({"grads": grads, "params": tensors, "stats": stats,
+                    "losses": out["losses"]}, path)
+    else:
+        ref = torch.load(path)
+        out["grad_rel"] = {n: _rel_l2(torch, g, r) for n, g, r in zip(names, grads, ref["grads"])}
+        out["grad_rel_all"] = _grad_rel_all(torch, grads, ref["grads"])
+        out["naive_rel_all"] = _grad_rel_all(torch, naive["grads"], ref["grads"])
+        out["naive_loss_err"] = {k: abs(v - ref["losses"][k]) / max(abs(ref["losses"][k]), 1e-6)
+                                 for k, v in naive["losses"].items()}
+        out["grad_norm"] = {n: r.norm().item() for n, r in zip(names, ref["grads"])}
+        out["param_diff"] = max((a - r).abs().max().item()
+                                for a, r in zip(tensors, ref["params"]))
+        out["bn_err"] = max((stats[k] - r).abs().max().item() / max(1.0, r.abs().max().item())
+                            for k, r in ref["stats"].items())
+    mesh_lib.barrier(mesh)
+    return out
+
+
+def mesh_job(rank, job):
+    """Phase 21 on one rank of a data-parallel mesh (core/mesh.launch): the
+    small reference step, serving, then training, as `job` asks. Returns
+    host objects."""
+    import numpy as np
+    import torch
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.rank_device()
+    mesh = mesh_lib.make_mesh()
+    out = {"rank": rank, "world": mesh.size, "device": str(dev), "backend": mesh.backend}
+    out["reference_step"] = mesh_reference_step(np, torch, dev, mesh, job)
+    if job.get("serve"):
+        out["serve"] = mesh_serve(np, torch, dev, mesh, job)
+    if job.get("train"):
+        out["train"] = mesh_train(np, torch, dev, mesh, job)
+    return out
+
+
+def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_SHAPE,
+               max_length=MAX_LENGTH, lm_budget=TRAIN_LM_BUDGET, train_seq=TRAIN_SEQ):
+    """21. The data-parallel mesh (core/mesh.py): one process per rank,
+    started by core.mesh.launch after the kernels are built. A checkpoint
+    directory of the main path's full-width seeded weights (as phase 20
+    writes it). Each world serves, through generate_reports_pipelined(mesh=),
+    2 batches of 8 uint8 2048x2500 X-rays greedy (max_length 60,
+    weights_int8="pallas", int8 KV cache) and 1 batch at beam 4, then trains
+    4 mini-steps (one update) of train.loop.train at RGRGConfig() (stage
+    3, f32, TF32 off, global batch 16) on synthetic batches:
+    (a) world 1 through NCCL on cuda:0; (b) world 2, two ranks sharing
+    cuda:0 through gloo; (c) with 2 or more cards, world min(count, 4)
+    through NCCL, one card per rank. In every world: the params' digest
+    the same on every rank before and after their replication; every
+    rank's reports equal to its own shards served without a mesh at
+    batch_size 8 / world in the same order (the shapes and row budgets its
+    mesh call meets: at world 1, the calls without a mesh), which holds the
+    sharding, padding and gathering exact; each rank's K1, K2, K4 (greedy)
+    and K3 (beam) counters as its shard needs them; the trained tensors
+    bitwise equal across ranks, and against world 1 the parameters after
+    the update within 2 x lr and BN statistics within 1e-5. Against world
+    1, the reports and selections that agree and the first losses are
+    measured, not required: another batch per card picks other cuDNN and
+    cuBLAS algorithms and other decode row budgets, so random bf16 weights'
+    near-ties and the detector's decisions at full width can go another
+    way; world 1 measures how far its first losses move when only the
+    convolutions' rounding changes (first_losses_witness). What is held
+    instead is a small training step (train_small_config) on a global batch
+    of 4 distinct images whose decisions clear TRAINING_MARGINS and which,
+    checked on the card, shows a naive port's traps (mesh_reference_naive):
+    losses within 1e-4 of world 1's, parameters within 2 x lr, BN
+    statistics within 1e-5, each tensor's gradient within 1e-2 relative L2
+    (phase 14(c)'s bound in the backbone), while the naive port's gradient
+    and its total and LM losses fall outside those bounds. ms per batch and per mini-step, the params'
+    replication and peak GB per rank are recorded. Returns the
+    launches of the mesh runs (all ranks)."""
+    import shutil
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.core.checkpoint import save_checkpoint
+    from rgrg_tpu_torch.core.config import RGRGConfig
+    from rgrg_tpu_torch.models.full_model import RGRG
+
+    t_phase = time.perf_counter()
+    cfg = cfg or full_width_config()
+    train_cfg = train_cfg or RGRGConfig()
+    layers = cfg.decoder.num_layers
+    chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
+    train_chunks = -(-train_cfg.model.detector.roi.batch_size_per_image
+                     // train_cfg.model.detector.roi.proposal_chunk)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    out, launches = {}, dict.fromkeys(("nms", "roi_align", "beam_attention", "dense_wint8"), 0)
+    try:
+        params = RGRG(cfg).init(seed=0, device=dev, decoder_dtype=torch.bfloat16)
+        ckpt = os.path.join(MESH_DIR, "params")
+        save_checkpoint(ckpt, params)
+        del params
+        tok = report_tokenizer(cfg.decoder.vocab_size, cfg.decoder.eos_token_id,
+                               byte_level=True)
+        tok_dir = write_tokenizer_dir(tok, os.path.join(MESH_DIR, "tokenizer"))
+        # 4 distinct images divide over 1, 2 and 4 ranks
+        ref_batch, ref_draws, _ = reference_training_batch(np, torch, MESH_REF_SEED, b=4)
+        traps, naive = mesh_reference_naive(np, torch, dev, ref_batch, ref_draws,
+                                            MESH_REF_BUDGET)
+        torch.save(naive, os.path.join(MESH_DIR, "reference_naive.pt"))
+        out["reference_traps"] = traps
+        log(f"mesh: small reference step's traps on the card: {traps}")
+        check(traps["lm_valid_rows"] > traps["budget"]
+              and traps["half_tokens"][0] != traps["half_tokens"][1]
+              and traps["half_bn_gap"] > 1e-3,
+              f"mesh: the small reference batch does not show the naive port's traps: {traps}")
+        del naive
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()   # each rank brings its own context
+        job = dict(ckpt=ckpt, tok_dir=tok_dir, cfg=cfg, train_cfg=train_cfg, dir=MESH_DIR,
+                   raw_shape=raw_shape, max_length=max_length, lm_budget=lm_budget,
+                   train_seq=train_seq, serve=True, train=True, ref_batch=ref_batch,
+                   ref_draws=ref_draws)
+        card0 = [f"cuda:{torch.cuda.current_device()}"] if dev.type == "cuda" else None
+        worlds = [("world 1", dict(nprocs=1, devices=card0, backend=None)),
+                  ("world 2", dict(nprocs=2, devices=card0 and card0 * 2, backend="gloo"))]
+        count = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if count >= 2:
+            n = min(count, 4)
+            worlds.append((f"world {n}", dict(nprocs=n, devices=[f"cuda:{i}" for i in range(n)],
+                                              backend="nccl")))
+        runs = {}
+        for name, how in worlds:
+            t = time.perf_counter()
+            ranks = mesh_lib.launch(mesh_job, how["nprocs"], args=(job,), device=dev.type,
+                                    devices=how["devices"], backend=how["backend"],
+                                    timeout_s=MESH_TIMEOUT_S)
+            runs[name] = ranks
+            wall = time.perf_counter() - t
+            backend = ranks[0]["backend"] or "none"
+            per = BATCH // how["nprocs"]
+            one = runs["world 1"][0]
+            failed = []
+
+            def expect(cond, msg):
+                if not cond:
+                    failed.append(msg)
+            expect(all(r["world"] == how["nprocs"] for r in ranks), "mesh sizes")
+            loaded = {r["serve"]["digest_loaded"] for r in ranks}
+            expect(len(loaded) == 1 and all(r["serve"]["digest_replicated"] in loaded
+                                            for r in ranks),
+                   "the params differ across ranks or after their replication")
+            agreement = {}
+            for call in ("greedy", "beam"):
+                want = interleaved([r["serve"][call]["own"] for r in ranks], per)
+                for r in ranks:
+                    expect(r["serve"][call]["reports"] == want,
+                           f"rank {r['rank']}: {call} reports differ from the ranks' own "
+                           f"shards served without a mesh")
+                    expect(r["serve"][call]["reports"] == ranks[0]["serve"][call]["reports"],
+                           f"rank {r['rank']}: {call} reports differ from rank 0's")
+                agreement[call] = world_agreement(ranks[0]["serve"][call], one["serve"][call])
+            for r in ranks:
+                sv, tr = r["serve"], r["train"]
+                g, bm = sv["greedy"]["counts"], sv["beam"]["counts"]
+                expect(g["nms"] == MESH_BATCHES and g["roi_align"] == MESH_BATCHES * chunks
+                       and g["greedy_steps"] > 0 and g["beam_attention"] == 0
+                       and g["dense_wint8"] == 4 * layers * (g["greedy_steps"] + g["prefills"]),
+                       f"rank {r['rank']}: greedy launches {g}")
+                expect(bm["nms"] == 1 and bm["roi_align"] == chunks and bm["beam_steps"] > 0
+                       and bm["beam_attention"] == layers * bm["beam_steps"]
+                       and bm["dense_wint8"] > 0, f"rank {r['rank']}: beam launches {bm}")
+                tc = tr["counts"]
+                expect(tc["nms"] == MESH_TRAIN_STEPS
+                       and tc["roi_align"] == train_chunks * MESH_TRAIN_STEPS,
+                       f"rank {r['rank']}: training launches {tc}")
+                expect(tr["update"], f"rank {r['rank']}: no AdamW update after "
+                       f"{MESH_TRAIN_STEPS} mini-steps")
+                for counts in (g, bm, tc):
+                    for k in launches:
+                        launches[k] += counts[k]
+                r["train"]["loss_err"] = {
+                    k: abs(tr["first_losses"][k] - v) / max(abs(v), 1e-6)
+                    for k, v in one["train"]["first_losses"].items()}
+            expect(len({r["train"]["digest"] for r in ranks}) == 1,
+                   "trained parameters differ across ranks")
+            refs = [r["reference_step"] for r in ranks]
+            expect(len({x["digest"] for x in refs}) == 1
+                   and len({x["grad_digest"] for x in refs}) == 1,
+                   "the reference step's gradients or parameters differ across ranks")
+            ref_err = max(abs(refs[0]["losses"][k] - v) / max(abs(v), 1e-6)
+                          for k, v in one["reference_step"]["losses"].items())
+            expect(ref_err <= 1e-4, f"reference step: losses rel err {ref_err} against "
+                   f"world 1")
+            if how["nprocs"] > 1:
+                # every tensor's gradient within phase 14(c)'s backbone
+                # bound of 1e-2 (f32 cancellation in train-mode BatchNorm's
+                # backward puts two summation orders ~4e-3 apart in the
+                # backbone and the RPN conv that reads it: cpu_rel), and
+                # the naive port's losses and gradient outside the
+                # tolerances, so that the check sees the trap
+                rs = refs[0]
+                expect(max(rs["grad_rel"].values()) <= 1e-2,
+                       f"reference step: gradients rel L2 {max(rs['grad_rel'].values())} "
+                       f"(worst tensor), {rs['grad_rel_all']} (whole) against world 1")
+                expect(rs["naive_rel_all"] > 1e-2 and rs["naive_loss_err"]["loss_total"] > 1e-4
+                       and rs["naive_loss_err"]["loss_lm"] > 1e-4,
+                       f"reference step: the naive port is within the tolerances (gradient "
+                       f"{rs['naive_rel_all']}, losses {rs['naive_loss_err']})")
+                expect(refs[0]["param_diff"] <= 2 * train_cfg.train.learning_rate + 1e-6
+                       and refs[0]["bn_err"] <= 1e-5,
+                       f"reference step: parameters {refs[0]['param_diff']}, BN statistics "
+                       f"{refs[0]['bn_err']} against world 1")
+            lead = ranks[0]["train"]
+            lr = train_cfg.train.learning_rate
+            if how["nprocs"] > 1:
+                expect(lead["param_diff"] <= 2 * lr + 1e-6,
+                       f"parameters after the update differ from world 1's by "
+                       f"{lead['param_diff']} > 2 x lr")
+                expect(lead["bn_err"] <= 1e-5, f"BN statistics differ from world 1's by "
+                       f"{lead['bn_err']}")
+            greedy_ms = [r["serve"]["greedy"]["yield_ms"][-1] / MESH_BATCHES for r in ranks]
+            beam_ms = [r["serve"]["beam"]["yield_ms"][-1] for r in ranks]
+            steady = [sorted(r["train"]["ms"][1:])[len(r["train"]["ms"][1:]) // 2]
+                      for r in ranks]
+            row = dict(backend=backend, devices=[r["device"] for r in ranks], wall_s=wall,
+                       greedy_ms_per_batch=greedy_ms, beam_ms=beam_ms,
+                       greedy_yield_ms=[r["serve"]["greedy"]["yield_ms"] for r in ranks],
+                       agreement_with_world_1=agreement,
+                       train_ms=[r["train"]["ms"] for r in ranks], train_steady_ms=steady,
+                       serve_peak_gb=[r["serve"]["peak_gb"] for r in ranks],
+                       train_peak_gb=[r["train"]["peak_gb"] for r in ranks],
+                       first_losses=lead["first_losses"], loss_err=lead["loss_err"],
+                       reference_step=dict(losses=refs[0]["losses"], loss_err=ref_err,
+                                           grad_rel=refs[0].get("grad_rel"),
+                                           grad_rel_all=refs[0].get("grad_rel_all"),
+                                           naive_rel_all=refs[0].get("naive_rel_all"),
+                                           naive_loss_err=refs[0].get("naive_loss_err"),
+                                           cpu_rel=refs[0]["cpu_rel"],
+                                           cpu_rel_all=refs[0]["cpu_rel_all"],
+                                           param_diff=refs[0].get("param_diff"),
+                                           bn_err=refs[0].get("bn_err")),
+                       replicate_ms=[r["serve"]["replicate_ms"] for r in ranks],
+                       first_losses_witness=lead["witness"],
+                       param_diff=lead.get("param_diff"), bn_err=lead.get("bn_err"),
+                       counts=[{c: r["serve"][c]["counts"] for c in ("greedy", "beam")}
+                               | {"train": r["train"]["counts"]} for r in ranks],
+                       failed=failed)
+            out[name] = row
+            fmt = lambda xs: "/".join(f"{x:.0f}" for x in xs)  # noqa: E731
+            agree = ", ".join(f"{c} {a['identical']}/{a['of']} reports and "
+                              f"{a['same_selections']}/{a['of']} selections"
+                              for c, a in agreement.items())
+            log(f"mesh {name} ({backend}, {len(ranks)} rank(s) on {sorted(set(row['devices']))}):"
+                f" greedy {fmt(greedy_ms)} ms a batch of {BATCH} (per rank, {MESH_BATCHES} "
+                f"batches after a warm-up), beam-{BEAMS} batch {fmt(beam_ms)} ms; reports equal "
+                f"to the ranks' own shards served without a mesh (batch {per}); against world "
+                f"1: {agree}; train {MESH_TRAIN_STEPS} mini-steps of global batch "
+                f"{train_cfg.train.batch_size}: ms {[fmt(r['train']['ms']) for r in ranks]}, "
+                f"steady {fmt(steady)} ms, peak GB serve "
+                f"{['%.1f' % x for x in row['serve_peak_gb'] if x is not None]} train "
+                f"{['%.1f' % x for x in row['train_peak_gb'] if x is not None]}; first losses "
+                f"{ {k: round(v, 5) for k, v in lead['first_losses'].items()} } (rel err "
+                f"against world 1 { {k: float('%.1e' % v) for k, v in lead['loss_err'].items()} })"
+                + (f", params vs world 1 {row['param_diff']:.1e} (2 x lr = {2 * lr:.0e}), BN "
+                   f"{row['bn_err']:.1e}" if how["nprocs"] > 1 else "")
+                + f"; small reference step: losses rel err {ref_err:.1e}"
+                + (f", gradients rel L2 {refs[0]['grad_rel_all']:.1e} whole, <= "
+                   f"{max(refs[0]['grad_rel'].values()):.1e} a tensor, params "
+                   f"{refs[0]['param_diff']:.1e}, BN {refs[0]['bn_err']:.1e}; the naive port: "
+                   f"gradient {refs[0]['naive_rel_all']:.1e}, losses "
+                   f"{ {k: float('%.1e' % v) for k, v in refs[0]['naive_loss_err'].items()} }"
+                   if how["nprocs"] > 1 else "")
+                + f"; card vs CPU (rounding alone) {refs[0]['cpu_rel_all']:.1e} whole, <= "
+                  f"{max(refs[0]['cpu_rel'].values()):.1e} a tensor"
+                + f"; params replicated in {fmt(row['replicate_ms'])} ms"
+                + f"; launches {row['counts'][0]}; {wall:.1f} s [{result['card']}]")
+            if lead["witness"] is not None:
+                log(f"  {name} first losses with cuDNN's and with PyTorch's own convolutions "
+                    f"(rel gap): { {k: float('%.1e' % v) for k, v in lead['witness']['gap'].items()} }")
+            worst_cpu = sorted(refs[0]["cpu_rel"].items(), key=lambda kv: -kv[1])[:6]
+            log(f"  {name} small reference step: worst gradients against the CPU (rel L2) "
+                f"{[(k, float('%.1e' % v)) for k, v in worst_cpu]}")
+            if how["nprocs"] > 1:
+                worst = sorted(refs[0]["grad_rel"].items(), key=lambda kv: -kv[1])[:6]
+                log(f"  {name} small reference step: worst gradients against world 1 (rel L2, "
+                    f"world 1's norm) {[(k, float('%.1e' % v), float('%.1e' % refs[0]['grad_norm'][k])) for k, v in worst]}")
+            for call, a in agreement.items():
+                for d in a["differing"]:
+                    log(f"  {name} {call}: image {d['image']} differs from world 1: same "
+                        f"selection {d['same_selection']}, sentences {d['sentences']}, first "
+                        f"differing sentence {d['first_differing_sentence']}")
+            check(not failed, f"mesh {name}: " + "; ".join(failed))
+        if count < 2:
+            log(f"mesh: {count} card visible: ran worlds 1 (NCCL) and 2 (gloo, one card) only")
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase, cards=count)
+    log(f"mesh: phase 21 took {out['seconds']:.1f} s; launches {launches}")
+    result["mesh"] = out
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3143,6 +3837,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     result = {"card": card, "kind": kind, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
+    if "--mesh-only" in sys.argv[1:]:
+        # phase 21 alone, e.g. on four cards: `python3 chip_smoke.py --mesh-only`
+        phase_mesh(np, torch, dev, result)
+        return finish(result, t_start, None, card, kind, "chip_smoke_mesh.json")
     phase_nms(np, torch, dev, result)
     phase_roi(np, torch, dev, result)
     phase_train_kernels(np, torch, dev, result)
@@ -3173,6 +3871,7 @@ def main() -> int:
     cli_launches = phase_train_cli(np, torch, dev, result)
     phase_chexbert_train(np, torch, dev, result)
     offline_launches = phase_offline(np, torch, dev, result)
+    mesh_launches = phase_mesh(np, torch, dev, result)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]
@@ -3185,20 +3884,22 @@ def main() -> int:
          "source": "rgrg_tpu_torch/csrc/nms.cu",
          "replaces": "rgrg_tpu/ops/nms_pallas.py:52",
          "launches": launches["nms"] + train_launches["nms"] + cli_launches["nms"]
-                     + offline_launches["nms"],
+                     + offline_launches["nms"] + mesh_launches["nms"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
          "train_ms": k1t["ms"], "train_bound_ms": k1t["bound_ms"],
          "shape": "B=8 x N=1000 (serving); train_*: B=16 x N=2000; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
-                  "and the evaluation of its checkpoint, and phase 20's evaluate, "
-                  "generate_reports and serve CLIs and traced request"},
+                  "and the evaluation of its checkpoint, phase 20's evaluate, "
+                  "generate_reports and serve CLIs and traced request, and phase 21's "
+                  "data-parallel serving and training (every rank)"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
          "launches": launches["roi_align"] + train_launches["roi_align"]
-                     + cli_launches["roi_align"] + offline_launches["roi_align"],
+                     + cli_launches["roi_align"] + offline_launches["roi_align"]
+                     + mesh_launches["roi_align"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -3208,13 +3909,15 @@ def main() -> int:
          "shape": "B=8 x 256 RoIs, bf16 features (serving); train_*: B=16 x 256 RoIs, "
                   "f32, the backward a torch.bmm over the fused weights; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
-                  "and the evaluation of its checkpoint, and phase 20's evaluate, "
-                  "generate_reports and serve CLIs and traced request"},
+                  "and the evaluation of its checkpoint, phase 20's evaluate, "
+                  "generate_reports and serve CLIs and traced request, and phase 21's "
+                  "data-parallel serving and training (every rank)"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
          "launches": launches["beam_attention"] + no_image_launches
-                     + cli_launches["beam_attention"] + offline_launches["beam_attention"],
+                     + cli_launches["beam_attention"] + offline_launches["beam_attention"]
+                     + mesh_launches["beam_attention"],
          "max_abs_err": max(k3["max_abs_err"], k3t0["max_abs_err"]),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "warm_ms": k3["warm_ms"],
@@ -3225,24 +3928,35 @@ def main() -> int:
                   "t0_*: from slot 1 (the no_image decode), slot 31, and 256 lanes x 305 "
                   "slots at slot 303; launches: the beam-4 serving requests, the no_image "
                   "beam, the evaluation of the train CLI's checkpoint, and phase 20's "
-                  "evaluate and generate_reports CLIs (max_length 300) and traced request"},
+                  "evaluate and generate_reports CLIs (max_length 300) and traced request, "
+                  "and phase 21's data-parallel beam batches (every rank)"},
         {"name": "dense_wint8", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
          "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",
-         "launches": k4_launches + offline_launches["dense_wint8"],
+         "launches": k4_launches + offline_launches["dense_wint8"]
+                     + mesh_launches["dense_wint8"],
          "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
          "shape": "mean of one layer's 4 products, M=64, bf16 x; library_ms: "
                   "torch.addmm over dequantised bf16 weights (weights_int8=False); "
-                  "launches: the 'pallas' serving run and phase 20's serve CLI"},
+                  "launches: the 'pallas' serving run, phase 20's serve CLI and phase 21's "
+                  "data-parallel serving (every rank)"},
     ]}
+    return finish(result, t_start, kernels_line, card, kind, "chip_smoke.json")
+
+
+def finish(result, t_start, kernels_line, card, kind, name) -> int:
+    """Write chiprun_out/<name>, then print the kernels line (if any), the
+    card line and the last line."""
+    import torch
     result["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(result, f, indent=1)
     log(f"total {result['total_s']:.1f} s")
-    print(json.dumps(kernels_line))
+    if kernels_line is not None:
+        print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -174,7 +174,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout, kept as a record: the port trains on one card."""
+    """The data-parallel mesh (core/mesh.py): `num_devices` ranks, one per
+    card (None: every visible card; one process on the CPU), over the
+    `data_axis`. train.loop.train builds the mesh from it at the first
+    batch, clamped to divide the batch; the train CLI starts that many
+    ranks."""
 
     data_axis: str = "data"
     num_devices: Optional[int] = None

@@ -33,7 +33,7 @@ weight-only per-channel int8; _dense multiplies by them in either layout
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -179,19 +179,28 @@ def _attn_scale(head_dim: int, dtype: torch.dtype) -> float:
     return torch.tensor(float(head_dim), dtype=dtype).sqrt().reciprocal().item()
 
 
-def _dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float,
+             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Training dropout (kept entries scaled by 1/(1-rate)); rate 0 is the
-    identity and draws nothing."""
-    return F.dropout(x, rate, training=True) if rate > 0 else x
+    identity and draws nothing. rows=(lo, total): `x` holds rows lo.. of a
+    batch of `total` rows (one rank's share under a data-parallel mesh;
+    default the whole batch): the mask is drawn at the whole batch's shape
+    and cut to them."""
+    if rate <= 0:
+        return x
+    lo, total = rows if rows is not None else (0, x.shape[0])
+    keep = torch.rand((total,) + tuple(x.shape[1:]), device=x.device)[lo:lo + x.shape[0]]
+    return torch.where(keep >= rate, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               bias: torch.Tensor, dropout_rate: float = 0.0) -> torch.Tensor:
+               bias: torch.Tensor, dropout_rate: float = 0.0,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q [B,H,S,D] x k/v [B,H,T,D] with additive bias [.., S, T] (0 or -1e4);
     dropout_rate > 0 drops attention weights after the softmax."""
     w = torch.einsum("bhsd,bhtd->bhst", q, k) * _attn_scale(v.shape[-1], q.dtype)
     w = torch.softmax(w + bias, dim=-1).to(v.dtype)
-    w = _dropout(w, dropout_rate)
+    w = _dropout(w, dropout_rate, rows)
     return torch.einsum("bhst,bhtd->bhsd", w, v)
 
 
@@ -204,7 +213,8 @@ def _positions_embed(params: Params, position_ids: torch.Tensor,
 def forward_full(params: Params, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor, image_features: Optional[torch.Tensor],
                  cfg: DecoderConfig, dropout: bool = False,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Teacher-forced forward over whole sequences: input_ids /
     attention_mask [B, S], image_features [B, F] raw region features (the
     feature-space transform runs here; cast to the parameters' dtype) or
@@ -212,7 +222,9 @@ def forward_full(params: Params, input_ids: torch.Tensor,
 
     dropout=True applies cfg's embd / attn / resid dropout rates from the
     device's default RNG; remat=True checkpoints each block, so only its
-    input is kept for backward."""
+    input is kept for backward. rows=(lo, total): the batch is rows lo.. of
+    `total` (a rank's share of a data-parallel batch), whose dropout masks
+    are cut from masks drawn for all `total` rows (`_dropout`)."""
     b, s = input_ids.shape
     wte = params["wte"]["embedding"]
     dev = wte.device
@@ -223,7 +235,7 @@ def forward_full(params: Params, input_ids: torch.Tensor,
     x = wte[input_ids] + _positions_embed(
         params, torch.arange(s, device=dev)[None, :], cfg)
     if dropout:
-        x = _dropout(x, cfg.embd_dropout)
+        x = _dropout(x, cfg.embd_dropout, rows)
 
     # bias [B, 1, S, (1+)S]: causal (the image column always visible) + padding
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
@@ -245,11 +257,11 @@ def forward_full(params: Params, input_ids: torch.Tensor,
             k = torch.cat([_dense(img, bp["attn"]["uk"]), k], dim=1)   # [B, 1+S, D]
             v = torch.cat([_dense(img, bp["attn"]["uv"]), v], dim=1)
         a = _attention(_split_heads(q, h, d), _split_heads(k, h, d),
-                       _split_heads(v, h, d), bias, attn_rate)
-        x = x + _dropout(_dense(_merge_heads(a), bp["attn"]["c_proj"]), resid_rate)
+                       _split_heads(v, h, d), bias, attn_rate, rows)
+        x = x + _dropout(_dense(_merge_heads(a), bp["attn"]["c_proj"]), resid_rate, rows)
         m = _layer_norm(x, bp["ln_2"], cfg.layer_norm_eps)
         m = _dense(_gelu_new(_dense(m, bp["mlp"]["c_fc"])), bp["mlp"]["c_proj"])
-        return x + _dropout(m, resid_rate)
+        return x + _dropout(m, resid_rate, rows)
 
     for i in range(cfg.num_layers):
         if remat:

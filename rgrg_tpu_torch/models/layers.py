@@ -5,7 +5,9 @@ the configured compute dtype (bf16 for serving): each layer casts its
 weights to the input's dtype at use. BatchNorm normalises in f32,
 y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and returns the input's
 dtype: in eval mode from its running statistics, in train mode from the
-batch's (flax.linen.BatchNorm's semantics, momentum 0.9).
+batch's (flax.linen.BatchNorm's semantics, momentum 0.9). Under a
+data-parallel mesh (core/mesh.active) train mode takes the global batch's
+statistics.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rgrg_tpu_torch.core import mesh as mesh_lib
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -58,7 +62,11 @@ class BatchNorm2d(nn.Module):
     computes them: mean and mean of squares, variance = max(0, E[x^2] -
     E[x]^2) (biased), and moves the running statistics to 0.9 * running +
     0.1 * batch, the variance biased too (F.batch_norm would store the
-    unbiased one)."""
+    unbiased one). The batch is the global one of the mesh
+    (core/mesh.current; without one, this process's): the per-channel sums
+    of x and x^2 are all-reduced over the ranks (the gradient flows back
+    through the reduction), so statistics, running statistics and gradients
+    are those of the whole batch."""
 
     momentum = 0.9
 
@@ -74,8 +82,13 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))   # f64 stays f64
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mesh = mesh_lib.current()
+            c = xf.shape[1]
+            sums = mesh_lib.all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                  (xf * xf).sum(dim=(0, 2, 3))]), mesh)
+            n = xf.numel() // c * mesh.size
+            mean, meansq = sums[:c] / n, sums[c:] / n
+            var = torch.clamp(meansq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1.0 - self.momentum) * mean)

@@ -18,6 +18,15 @@ checkpoints `best` (each new best validation loss) and `last`, which
 --checkpoint <run_dir>/last` scores. `--init-from-torch` warm-starts from
 a reference .pt: a stage-1 detector checkpoint, or a full model. Runs on
 the card unless `--device cpu` is given.
+
+Data parallel: cfg.mesh.num_devices ranks (None, the default: every
+visible card; one process on the CPU), one per card (core/mesh.launch;
+NCCL, or gloo with `--device cpu`; CUDA_VISIBLE_DEVICES narrows the
+cards). Each rank builds
+the same global batches from the same loader and seed and keeps its rows;
+train.loop.train computes the global batch's loss and gradient, and rank
+0 writes metrics and checkpoints. The kernels are built once before the
+ranks start.
 """
 
 from __future__ import annotations
@@ -100,18 +109,40 @@ def make_val_fn(model, cfg, val_ds, tok, stage: int, batch_size: int, lm_budget:
 def main(argv=None, cfg=None):
     """Parse `argv` (default sys.argv) and train. `cfg`: the RGRGConfig
     (default RGRGConfig(), the reference's full width). Returns the final
-    TrainState."""
+    TrainState; with more than one rank, None (the ranks' states stay in
+    their processes; <run_dir>/last holds it)."""
+    import torch
     from rgrg_tpu_torch.core.config import RGRGConfig
     from rgrg_tpu_torch.core.device import resolve_device
+
+    args = build_parser().parse_args(argv)
+    cfg = cfg or RGRGConfig()
+    device = resolve_device(args.device)
+    n = cfg.mesh.num_devices
+    if n is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n == 1:
+        return _train(args, cfg, device)
+    from rgrg_tpu_torch.core import mesh
+    if device.type == "cuda":
+        from rgrg_tpu_torch.ops import kernels
+        kernels.build()
+    mesh.launch(_train_rank, n, args=(args, cfg), device=device.type)
+    return None
+
+
+def _train_rank(rank: int, args, cfg) -> None:
+    from rgrg_tpu_torch.core import mesh
+    _train(args, cfg, mesh.rank_device())
+
+
+def _train(args, cfg, device):
     from rgrg_tpu_torch.data.dataset import RGRGDataset, read_split_csv
     from rgrg_tpu_torch.data.prefetch import prefetched
     from rgrg_tpu_torch.models.full_model import RGRG
     from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
     from rgrg_tpu_torch.train.loop import train
 
-    args = build_parser().parse_args(argv)
-    cfg = cfg or RGRGConfig()
-    device = resolve_device(args.device)
     model = RGRG(cfg=cfg.model)
     batch_size = args.batch_size or cfg.train.batch_size
     init_params: Optional[Dict[str, Any]] = None

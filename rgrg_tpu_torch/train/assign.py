@@ -14,6 +14,10 @@ Every uniform draw of the training path goes through `uniform`, from a
 `torch.Generator` on the tensors' device, or from a sequence of given
 arrays replayed in call order (how the tests feed the JAX package's draws,
 which torch cannot reproduce, and how a card run is held to a CPU run).
+Under a data-parallel mesh (core/mesh.current) each rank draws at the
+global batch's shape, from a generator seeded alike on every rank (or the
+global replay), and keeps its own rows: the draws do not depend on the
+number of ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Iterator, NamedTuple, Union
 import numpy as np
 import torch
 
+from rgrg_tpu_torch.core import mesh as mesh_lib
 from rgrg_tpu_torch.ops.boxes import box_iou
 
 BELOW_LOW = -1
@@ -34,14 +39,21 @@ Rng = Union[torch.Generator, Iterator]
 
 def uniform(rng: Rng, shape, device: torch.device) -> torch.Tensor:
     """Uniform [0, 1) f32 draws of `shape` on `device`: from the generator,
-    or the next array of a replay (which must have this shape)."""
+    or the next array of a replay (which must have the global shape).
+    `shape` is this rank's rows of the mesh's global batch
+    (core/mesh.current): the draw is made at the global shape and cut to
+    them."""
     shape = tuple(shape)
+    mesh = mesh_lib.current()
+    full = (shape[0] * mesh.size,) + shape[1:]
     if isinstance(rng, torch.Generator):
-        return torch.rand(shape, generator=rng, device=device)
-    keys = torch.as_tensor(np.asarray(next(rng), np.float32))
-    if tuple(keys.shape) != shape:
-        raise ValueError(f"replayed draw has shape {tuple(keys.shape)}, wanted {shape}")
-    return keys.to(device)
+        keys = torch.rand(full, generator=rng, device=device)
+    else:
+        keys = torch.as_tensor(np.asarray(next(rng), np.float32))
+        if tuple(keys.shape) != full:
+            raise ValueError(f"replayed draw has shape {tuple(keys.shape)}, wanted {full}")
+        keys = keys.to(device)
+    return keys[mesh_lib.batch_sharded(full[0], mesh)]
 
 
 class MatchResult(NamedTuple):

@@ -1,4 +1,5 @@
-"""The epoch / step loop of the three-stage training protocol on one device.
+"""The epoch / step loop of the three-stage training protocol, on one device
+or data-parallel over the ranks of a process group (core/mesh.py).
 
   - checkpoints `<run_dir>/best` (each new best validation loss),
     `step_N` (every checkpoint_every mini-steps) and `last`, and resume from
@@ -7,7 +8,16 @@
     optimizer's LR scale; optional early stop; `max_steps` mini-steps;
   - the proposal-sampling draws come from a torch.Generator seeded with
     seed + 1 on the params' device, the params from `seed`; dropout draws
-    from the device's default generator.
+    from the device's default generator, seeded with seed + 2;
+  - data parallelism as in the JAX package: the mesh is built at the first
+    batch from cfg.mesh.num_devices (None: every rank of the process
+    group), clamped to divide the batch; the state is replicated from rank
+    0, every rank takes the same global batches and keeps its rows, and
+    the train step computes the global batch's loss and gradient
+    (train/trainer.py). Rank 0 alone writes metrics and checkpoints, and
+    runs the validation, whose result it broadcasts, so the plateau scale,
+    the best checkpoint, early stop and max_steps are decided alike on
+    every rank.
 Scalars go to `<run_dir>/metrics.jsonl` (utils/logging.MetricWriter).
 """
 
@@ -21,6 +31,7 @@ from typing import Any, Callable, Iterable, Mapping, Optional
 
 import torch
 
+from rgrg_tpu_torch.core import mesh as mesh_lib
 from rgrg_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from rgrg_tpu_torch.core.config import RGRGConfig
 from rgrg_tpu_torch.core.convert import load_detector_
@@ -95,6 +106,16 @@ def warm_start_params(params: trainer.Params, init_params: trainer.Params) -> tr
     return params
 
 
+def replicate_state(state: trainer.TrainState, mesh: mesh_lib.Mesh) -> trainer.TrainState:
+    """Rank 0's params, accumulated gradient and AdamW moments on every
+    rank (in place)."""
+    opt = state.opt_state
+    mesh_lib.replicate_pytree([state.params, opt.acc,
+                               [v for st in opt.adamw.state.values() for v in st.values()]],
+                              mesh)
+    return state
+
+
 def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
           run_dir: str, stage: int = 3, num_epochs: int = 1,
           val_fn: Optional[Callable[[Any], Any]] = None,
@@ -107,10 +128,13 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
     dict of them whose "total" drives the plateau scheduler and the best
     checkpoint, called every `evaluate_every` mini-steps. init_params:
     warm-start weights (`warm_start_params`). Runs on the card unless
-    device="cpu"."""
+    device="cpu". In a process group (core.mesh.launch) every rank calls
+    it alike; a rank that the batch leaves outside the mesh returns None."""
     tcfg = cfg.train
-    writer = MetricWriter(run_dir)
-    writer.write_config(cfg)
+    main = mesh_lib.process_rank() == 0
+    writer = MetricWriter(run_dir) if main else None
+    if main:
+        writer.write_config(cfg)
 
     state = trainer.init_train_state(model, tcfg.seed, tcfg, stage=stage, device=device)
     if init_params is not None:
@@ -121,7 +145,8 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
         state = load_checkpoint(resume_from, target=state)
         log.info("resumed from %s at step %d", resume_from, state.step)
 
-    step_fn = trainer.make_train_step(model, tcfg, stage=stage, lm_budget=lm_budget)
+    # built at the first batch, so that its size can be clamped to the batch
+    mesh = step_fn = None
     plateau = PlateauScheduler(factor=tcfg.lr_factor, patience=tcfg.lr_patience,
                                threshold=tcfg.lr_threshold, cooldown=tcfg.lr_cooldown)
     evaluate_every = evaluate_every or tcfg.evaluate_every_k_batches
@@ -130,35 +155,52 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
     stop_early = False
     dev = state.params["decoder"]["wte"]["embedding"].device
     rng = torch.Generator(device=dev).manual_seed(tcfg.seed + 1)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            torch.cuda.manual_seed(tcfg.seed + 2)
+    else:
+        torch.manual_seed(tcfg.seed + 2)
     step = state.step
 
     for epoch in range(num_epochs):
         t_epoch = time.time()
         for batch in train_batches():
-            state, losses = step_fn(state, batch, rng)
+            if mesh is None:
+                mesh = mesh_lib.make_mesh(cfg.mesh.num_devices,
+                                          batch_size=int(batch["images"].shape[0]))
+                if not mesh.member:
+                    log.info("rank %d is outside the %d-rank mesh", mesh.rank, mesh.size)
+                    return None
+                replicate_state(state, mesh)
+                step_fn = trainer.make_train_step(model, tcfg, stage=stage,
+                                                  lm_budget=lm_budget, mesh=mesh)
+            state, losses = step_fn(state, mesh_lib.shard_pytree_batch(batch, mesh), rng)
             step = state.step
-            if step % 50 == 0:
+            if main and step % 50 == 0:
                 writer.write_scalars(step, {f"train/{k}": float(v)
                                             for k, v in losses.items()})
             if val_fn is not None and step % evaluate_every == 0:
-                val_out = val_fn(state)
+                val_out = mesh_lib.broadcast_object(val_fn(state) if main else None, mesh)
                 if isinstance(val_out, dict):
                     val_loss = float(val_out.get("total", 0.0))
-                    writer.write_scalars(step, {f"val/{k}": float(v)
-                                                for k, v in val_out.items()
-                                                if k != "total"})
+                    if main:
+                        writer.write_scalars(step, {f"val/{k}": float(v)
+                                                    for k, v in val_out.items()
+                                                    if k != "total"})
                 else:
                     val_loss = float(val_out)
                 prev_scale = plateau.scale
                 scale = plateau.update(val_loss)
                 if scale != prev_scale:
                     trainer.set_lr_scale(state.opt_state, scale)
-                writer.write_scalars(step, {"val/loss": val_loss,
-                                            "train/lr_scale": scale})
+                if main:
+                    writer.write_scalars(step, {"val/loss": val_loss,
+                                                "train/lr_scale": scale})
                 if val_loss < best_val:
                     best_val = val_loss
                     vals_since_best = 0
-                    save_checkpoint(os.path.join(run_dir, "best"), state)
+                    if main:
+                        save_checkpoint(os.path.join(run_dir, "best"), state)
                 else:
                     vals_since_best += 1
                     if (tcfg.early_stop_patience is not None
@@ -167,15 +209,19 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
                                  "(patience %d)", vals_since_best,
                                  tcfg.early_stop_patience)
                         stop_early = True
-            if checkpoint_every and step % checkpoint_every == 0:
+            if main and checkpoint_every and step % checkpoint_every == 0:
                 save_checkpoint(os.path.join(run_dir, f"step_{step}"), state)
             if stop_early or (max_steps and step >= max_steps):
                 break
-        writer.write_scalars(step, {"train/epoch_seconds": time.time() - t_epoch,
-                                    "train/epoch": epoch})
+        if main:
+            writer.write_scalars(step, {"train/epoch_seconds": time.time() - t_epoch,
+                                        "train/epoch": epoch})
         if stop_early or (max_steps and step >= max_steps):
             break
 
-    save_checkpoint(os.path.join(run_dir, "last"), state)
-    writer.close()
+    if main:
+        save_checkpoint(os.path.join(run_dir, "last"), state)
+        writer.close()
+    if mesh is not None:
+        mesh_lib.barrier(mesh)   # `last` is on disk before any rank returns
     return state

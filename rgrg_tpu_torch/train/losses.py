@@ -10,6 +10,13 @@
     averaged over the detected regions.
   - LM: shift-by-one CE ignoring pads, averaged over the valid tokens of the
     valid (detected and sentence-bearing) region sequences.
+
+Every loss is this rank's share of the loss of the mesh's global batch
+(core/mesh.current; without a mesh, this process's batch): its sum over this rank's rows divided
+by the global count (of images, sampled RoIs, detected regions, valid
+tokens), so the ranks' shares add up to the loss of the whole batch and
+so do their gradients. The LM compacts the global batch's rows and
+decodes this rank's part of them (`lm_loss_selected`).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from rgrg_tpu_torch.core import mesh as mesh_lib
 from rgrg_tpu_torch.core.config import DetectorConfig
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.ops import boxes as box_ops
@@ -46,6 +54,21 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
     if dim is None:
         return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.sum(x * m, dim=dim) / torch.clamp(torch.sum(m, dim=dim), min=1.0)
+
+
+def batch_masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """masked_mean over the whole batch of the mesh (core/mesh.current):
+    this rank's masked sum over the global count."""
+    m = mask.to(x.dtype)
+    count = mesh_lib.global_sum(torch.sum(m), mesh_lib.current())
+    return torch.sum(x * m) / torch.clamp(count, min=1.0)
+
+
+def image_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the images of a per-image loss [B] of the mesh's global
+    batch (core/mesh.current): this rank's sum over the global image
+    count."""
+    return x.sum() / (x.shape[0] * mesh_lib.current().size)
 
 
 def _finite(targets: torch.Tensor) -> torch.Tensor:
@@ -79,7 +102,7 @@ def rpn_loss(rng: assign.Rng, objectness: torch.Tensor, pred_deltas: torch.Tenso
     obj_l = masked_mean(bce_with_logits(objectness, labels), sampled, dim=1)
     # with a fixed sample count per image, the mean of per-image means is
     # the mean over the batch's concatenated samples
-    return {"loss_objectness": obj_l.mean(), "loss_rpn_box_reg": box_l.mean()}
+    return {"loss_objectness": image_mean(obj_l), "loss_rpn_box_reg": image_mean(box_l)}
 
 
 class RoISamples(NamedTuple):
@@ -129,20 +152,21 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
     labels = torch.clamp(samples.labels, min=0)
     logp = torch.log_softmax(class_logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    cls_loss = masked_mean(nll, samples.sampled)
+    cls_loss = batch_masked_mean(nll, samples.sampled)
     reg = box_regression.reshape(b, s, c, 4)
     picked = torch.gather(reg, 2, labels[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     box_l = torch.sum(smooth_l1(picked, samples.reg_targets, 1.0 / 9.0)
                       * samples.pos[..., None])
-    box_loss = box_l / torch.clamp(samples.sampled.sum(), min=1)
+    n_sampled = mesh_lib.global_sum(samples.sampled.sum(), mesh_lib.current())
+    box_loss = box_l / torch.clamp(n_sampled, min=1)
     return {"loss_classifier": cls_loss, "loss_box_reg": box_loss}
 
 
 def classifier_loss(logits: torch.Tensor, targets: torch.Tensor,
                     class_detected: torch.Tensor, pos_weight: float) -> torch.Tensor:
     """Weighted BCE over the detected regions; all [B, 29]."""
-    return masked_mean(bce_with_logits(logits, targets.to(logits.dtype), pos_weight),
-                       class_detected)
+    return batch_masked_mean(bce_with_logits(logits, targets.to(logits.dtype), pos_weight),
+                             class_detected)
 
 
 def lm_loss_selected(decoder_params, input_ids: torch.Tensor,
@@ -153,21 +177,36 @@ def lm_loss_selected(decoder_params, input_ids: torch.Tensor,
     rows. input_ids / attention_mask [B, 29, S]; region_features [B, 29, F];
     seq_valid [B, 29]. Equals the CE over the dynamically filtered batch
     whenever budget >= the valid count. CE is logsumexp minus the picked
-    logit (no [N, S, V] log-softmax is materialised)."""
+    logit (no [N, S, V] log-softmax is materialised).
+
+    The inputs are this rank's images of the mesh (core/mesh.current; one
+    process alone is a mesh of one): the global batch's rows are gathered (region features with their gradient),
+    compacted to `budget` in the same stable order as on one device, and
+    this rank decodes its contiguous part of the compacted rows (dropout
+    masks cut from the whole budget's); its summed NLL is divided by the
+    global count of valid tokens."""
+    mesh = mesh_lib.current()
+    input_ids, attention_mask, region_features, seq_valid = (
+        mesh_lib.all_gather_rows(t, mesh)
+        for t in (input_ids, attention_mask, region_features, seq_valid))
     b, r, s = input_ids.shape
     flat_valid = seq_valid.reshape(b * r)
     idx = torch.sort((~flat_valid).to(torch.int32), stable=True).indices[:budget]
     active = flat_valid[idx]
-    ids = input_ids.reshape(b * r, s)[idx]
     mask = attention_mask.reshape(b * r, s)[idx] * active[:, None].to(attention_mask.dtype)
+    count = torch.clamp(mask[:, 1:].to(torch.bool).sum(), min=1)
+    n = idx.shape[0]
+    lo, hi = n * mesh.rank // mesh.size, n * (mesh.rank + 1) // mesh.size
+    idx, mask = idx[lo:hi], mask[lo:hi]
+    ids = input_ids.reshape(b * r, s)[idx]
     feats = region_features.reshape(b * r, -1)[idx]
 
     logits = gpt2.forward_full(decoder_params, ids, mask, feats, cfg,
-                               dropout=dropout, remat=remat)
+                               dropout=dropout, remat=remat, rows=(lo, n))
     shift_logits = logits[:, :-1, :].to(torch.float32)
     shift_labels = ids[:, 1:].to(torch.int64)
     shift_valid = mask[:, 1:].to(torch.bool)
     lse = torch.logsumexp(shift_logits, dim=-1)
     picked = torch.gather(shift_logits, -1, shift_labels[..., None])[..., 0]
     nll = torch.where(shift_valid, lse - picked, 0.0)
-    return torch.sum(nll) / torch.clamp(shift_valid.sum(), min=1)
+    return torch.sum(nll) / count

@@ -1,4 +1,5 @@
-"""Train steps for the three-stage RGRG protocol, on one device.
+"""Train steps for the three-stage RGRG protocol, on one device or as one
+rank of a data-parallel mesh (core/mesh.py).
 
 Stages:
   1: the object detector alone (RPN objectness / box + RoI class / box
@@ -17,6 +18,14 @@ requires_grad=False, so no weight gradient is computed for them. An LR
 scale (ReduceLROnPlateau's knob) sets each group's lr to base x scale,
 which equals optax's scaling of the final updates: AdamW's update is
 linear in its lr.
+
+Data parallelism (`make_train_step(mesh=)`) keeps the global batch's math:
+under core/mesh.active each rank's losses are its share of the whole
+batch's (global BatchNorm statistics, draws at the global shape, losses
+over global counts, the LM compacted over the global rows), each rank
+backpropagates its share, and the gradients are all-reduced by sum: the
+gradient of the global loss, not a mean of per-rank means. AdamW then
+runs alike on every rank, so the parameters stay bitwise equal.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from rgrg_tpu_torch.core import mesh as mesh_lib
 from rgrg_tpu_torch.core.config import TrainConfig
 from rgrg_tpu_torch.core.device import DeviceLike
 from rgrg_tpu_torch.models.full_model import RGRG
@@ -252,19 +262,28 @@ def compute_losses(model: RGRG, params: Params, batch: Dict[str, torch.Tensor],
 
 def make_train_step(model: RGRG, tcfg: TrainConfig, stage: int = 3,
                     lm_budget: int = 128, mixed_precision: bool = False,
-                    remat_decoder: bool = False):
+                    remat_decoder: bool = False, mesh: Optional[mesh_lib.Mesh] = None):
     """Builds train_step(state, batch, rng) -> (state, losses): one
     mini-step (forward, backward, accumulate; AdamW on every
     grad_accumulation_steps-th), updating `state` in place. `batch` holds
-    numpy arrays or tensors; losses are detached tensors on the device."""
+    numpy arrays or tensors; losses are detached tensors on the device.
+    With a mesh, `batch` is this rank's rows of the global batch
+    (core/mesh.shard_pytree_batch), `rng` is seeded alike on every rank,
+    and the losses returned are the global batch's."""
 
     def train_step(state: TrainState, batch: Dict[str, Any], rng: assign.Rng):
         device = state.params["decoder"]["wte"]["embedding"].device
-        total, losses = compute_losses(model, state.params, batch_to_device(batch, device),
-                                       rng, stage, tcfg, lm_budget,
-                                       mixed_precision=mixed_precision,
-                                       remat_decoder=remat_decoder)
-        total.backward()
+        with mesh_lib.active(mesh):
+            total, losses = compute_losses(model, state.params, batch_to_device(batch, device),
+                                           rng, stage, tcfg, lm_budget,
+                                           mixed_precision=mixed_precision,
+                                           remat_decoder=remat_decoder)
+            total.backward()
+        mesh_lib.all_reduce_grads_(state.opt_state.tensors, mesh)
+        names = list(losses)
+        summed = mesh_lib.global_sum(torch.stack([losses[k].detach().float()
+                                                  for k in names]), mesh)
+        losses = dict(zip(names, summed))
         state.opt_state.step()
         state.step += 1
         return state, {k: v.detach() for k, v in losses.items()}

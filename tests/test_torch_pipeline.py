@@ -238,7 +238,8 @@ def _imports(path, in_functions=True):
 
 
 @pytest.mark.parametrize("target", ["rgrg_tpu_torch", "chip_smoke.py",
-                                    "tests/torch_parity.py", "tests/etl_corpus.py"])
+                                    "tests/torch_parity.py", "tests/etl_corpus.py",
+                                    "tests/torch_mesh_ranks.py"])
 def test_port_imports_no_jax(target):
     """The port, and the test helpers chip_smoke.py uses, never import
     jax, flax, the JAX package or transformers (an AST scan: this host may
@@ -263,7 +264,8 @@ IN_FUNCTIONS_ONLY = ("cv2", "matplotlib")
 
 
 @pytest.mark.parametrize("target", ["rgrg_tpu_torch", "chip_smoke.py",
-                                    "tests/torch_parity.py", "tests/etl_corpus.py"])
+                                    "tests/torch_parity.py", "tests/etl_corpus.py",
+                                    "tests/torch_mesh_ranks.py"])
 def test_port_imports_run_on_the_card(target):
     """No module of the port imports a package the card's machine lacks,
     and cv2 and matplotlib only inside function bodies, so every module
