@@ -165,6 +165,24 @@ Phases (any failed check raises and the script exits non-zero):
      and per mini-step, peak GB per rank.
      `python3 chip_smoke.py --mesh-only` builds the kernels and runs phase
      21 alone (details in chiprun_out/chip_smoke_mesh.json).
+  22. the three-stage rehearsal (`phase_rehearsal`,
+     tools/three_stage_rehearsal.py) at the reference rehearsal's widths
+     (ResNet-50, a 4 x 256 GPT-2 over 257 byte tokens, batch 8, f32):
+     K1 at B=8 x N=2000 and B=32 x N=1000 against its plain version;
+     K1-K3's wrappers on CPU tensors count no launch; then 16 / 8 / 16
+     mini-steps of stages 1 -> 2 -> 3 with warm-start handoffs (stage 2
+     begins with stage 1's final detector, stage 3 with stage 2's params,
+     bit for bit), evaluate_model at beam 4 on 1 batch, and the proposal-
+     budget check on the stage-3 checkpoint (budgets 992 / 960 / 600,
+     --ladder, detect timed at B=32); every loss finite, K1-K3 launched, a
+     tested budget safe, the summary's keys those of
+     docs/artifacts/three_stage_rehearsal.json; after the run K3 at the
+     decode's shape (its row budget x 4 beams, 4 heads x 64 dims, 41
+     slots, f32) against its plain version. `python3 chip_smoke.py
+     --rehearsal-only` builds the kernels and runs it at 400 / 150 / 400
+     mini-steps with 3 evaluation batches, writes
+     chiprun_out/{three_stage_rehearsal,proposal_budget_trained}.json and
+     fails unless the trend bands (REHEARSAL_BANDS) hold.
 
 TF32 is off for the whole run (the f32 training numbers are without it). Output: progress lines, then a JSON
 line of per-kernel numbers, the nvidia-smi line, and as the last line
@@ -1107,15 +1125,17 @@ def profiled(torch, fn, steady_ms, what, unit):
     against the unprofiled `steady_ms` of one `unit` (and against the
     profiled wall time), the top device kernels, and the hand-written
     kernels' device time per launch. None when the profiler saw no device
-    time."""
+    time. Only device activity is traced: every number here reads device
+    events, and the host's op events would multiply the post-processing,
+    which takes its own seconds (logged)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        t_post = time.perf_counter()
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -1126,6 +1146,7 @@ def profiled(torch, fn, steady_ms, what, unit):
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=dev_us, reverse=True)
+    post_s = time.perf_counter() - t_post
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms <= 0:
         log(f"{what}: profiler saw no device time (device busy share not measured)")
@@ -1135,10 +1156,11 @@ def profiled(torch, fn, steady_ms, what, unit):
     launches = sum(e.count for e in events)
     log(f"{what}: device busy {busy_ms:.1f} ms in one {unit} ({launches} device ops); "
         f"idle share {1 - busy_ms / steady_ms:.1%} of the unprofiled {steady_ms:.1f} ms "
-        f"{unit} ({1 - busy_ms / wall_ms:.1%} of the profiled {wall_ms:.1f} ms)")
+        f"{unit} ({1 - busy_ms / wall_ms:.1%} of the profiled {wall_ms:.1f} ms); the "
+        f"profiler's post-processing {post_s:.1f} s")
     for row in top:
         log(f"  {row['device_ms']:9.2f} ms {row['calls']:7d}x  {row['name']}")
-    out = {"profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+    out = {"profiled_wall_ms": wall_ms, "post_processing_s": post_s, "busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / steady_ms,
            "idle_share_profiled": 1 - busy_ms / wall_ms,
            "device_ops": launches, "top": top}
@@ -1671,6 +1693,7 @@ def phase_eval_full_width(np, torch, dev, result, gen, cfg):
     from rgrg_tpu_torch.ops.roi_align import roi_align
     from rgrg_tpu_torch.serving import CascadeStats
 
+    t_setup = time.perf_counter()
     tok = report_tokenizer(cfg.decoder.vocab_size, cfg.decoder.eos_token_id, byte_level=True)
     arrays, rows = eval_rows(np, EVAL_BATCHES * BATCH, RAW_SHAPE, seed=17)
     bert_cfg = BertConfig()
@@ -1683,6 +1706,7 @@ def phase_eval_full_width(np, torch, dev, result, gen, cfg):
     model = TimedModel(torch, gen.model)
     ds = RGRGDataset(rows, tok)
     chunks = -(-cfg.detector.rpn.pre_nms_top_n_test // cfg.detector.roi.proposal_chunk)
+    setup_s = time.perf_counter() - t_setup
     with images_in_memory(arrays):
         t_data = time.perf_counter()
         first = next(ds.batches(BATCH))
@@ -1756,8 +1780,14 @@ def phase_eval_full_width(np, torch, dev, result, gen, cfg):
                               max_length=EVAL_MAX_LENGTH, similarity_fn=scorer,
                               chexbert=labeler, cascade_stats=stats)
     _, one_ms = timed(torch, one_batch, reps=1)
+    t_prof = time.perf_counter()
     prof = profiled(torch, one_batch, one_ms, "eval full width, one batch", "batch")
+    prof_s = time.perf_counter() - t_prof
+    log(f"eval full width, where the phase's time goes: setup (X-rays, CheXbert, scorer) "
+        f"{setup_s:.1f} s, evaluate_model {total_ms / 1e3:.1f} s, the timed batch "
+        f"{one_ms / 1e3:.1f} s, the profiled batch {prof_s:.1f} s")
     result["eval_full_width"] = dict(per_batch=per_batch, total_ms=total_ms, one_batch_ms=one_ms,
+                                     setup_s=setup_s, profiled_s=prof_s,
                                      data_first_batch_ms=data_ms, launches=counts,
                                      language_generation=lg,
                                      reports_per_s_decode=n_batches * BATCH / decode_s,
@@ -1772,6 +1802,31 @@ TRAIN_LM_BUDGET = 128   # train.loop.train's default LM row budget
 TRAIN_ROIS = 256        # RoI chunk (cfg.roi.proposal_chunk): one K2 launch
 
 
+def nms_row(np, torch, dev, result, b, n, seed=3):
+    """K1 at B=b x N=n (phase 3's inputs): mask bit-identical to the plain
+    version, timed beside it and its bound (the IoU tests these boxes
+    need)."""
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+    boxes, valid = nms_inputs(np, torch, dev, b=b, n=n, seed=seed)
+    got = nms_keep_mask(boxes, valid, 0.7)
+    torch.cuda.synchronize()
+    check(torch.equal(got, nms_keep_mask_plain(boxes, valid, 0.7)),
+          f"NMS kernel mask != plain mask at B={b} N={n}")
+    ms = cuda_ms(torch, lambda: nms_keep_mask(boxes, valid, 0.7), 50)
+    plain_ms = cuda_ms(torch, lambda: nms_keep_mask_plain(boxes, valid, 0.7), 2, warmup=1)
+    keep = got.cpu().numpy()
+    pairs = nms_pairs_needed(np, boxes.cpu().numpy(), valid.cpu().numpy(), keep, 0.7)
+    nbytes, flops = b * n * 18, 16 * pairs
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations", pairs=pairs,
+               kept=int(keep.sum()), max_abs_err=0.0)
+    log(f"K1 nms training shape: B={b} N={n} kept={row['kept']} mask identical, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}: {pairs} IoU tests) [{result['card']}]")
+    return row
+
+
 def phase_train_kernels(np, torch, dev, result):
     """(a) K1 at the training proposal count (B=16 x N=2000) and the
     validation count (N=1000), masks bit-identical to the plain version;
@@ -1782,30 +1837,10 @@ def phase_train_kernels(np, torch, dev, result):
     relative), bit-identical on a relaunch. Times the forward, the backward
     product and `torch.bmm` alone on the same W2 and gradient (the library
     call the backward is)."""
-    from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
     from rgrg_tpu_torch.ops.roi_align import (roi_align, roi_align_feature_grad,
                                               roi_align_plain, roi_align_weights)
-    rows = {}
-    for n in (2000, 1000):
-        boxes, valid = nms_inputs(np, torch, dev, b=TRAIN_BATCH, n=n, seed=3)
-        got = nms_keep_mask(boxes, valid, 0.7)
-        torch.cuda.synchronize()
-        check(torch.equal(got, nms_keep_mask_plain(boxes, valid, 0.7)),
-              f"NMS kernel mask != plain mask at B={TRAIN_BATCH} N={n}")
-        ms = cuda_ms(torch, lambda: nms_keep_mask(boxes, valid, 0.7), 50)
-        plain_ms = cuda_ms(torch, lambda: nms_keep_mask_plain(boxes, valid, 0.7), 2, warmup=1)
-        keep = got.cpu().numpy()
-        pairs = nms_pairs_needed(np, boxes.cpu().numpy(), valid.cpu().numpy(), keep, 0.7)
-        nbytes, flops = TRAIN_BATCH * n * 18, 16 * pairs
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o) * 1e3,
-                   bound_by="bytes" if t_b >= t_o else "operations", pairs=pairs,
-                   kept=int(keep.sum()), max_abs_err=0.0)
-        rows[f"N={n}"] = row
-        log(f"K1 nms training shape: B={TRAIN_BATCH} N={n} kept={row['kept']} mask identical, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']}: {pairs} IoU tests) [{result['card']}]")
-    result["nms_train"] = rows
+    result["nms_train"] = {f"N={n}": nms_row(np, torch, dev, result, TRAIN_BATCH, n)
+                           for n in (2000, 1000)}
 
     k2 = {}
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3802,6 +3837,249 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
     return launches
 
 
+# ------------------------------------------------------------------ slice 13
+
+REHEARSAL_DIR = os.path.join(ROOT, "build", "smoke_rehearsal")
+# the default smoke's depth; `--rehearsal-only` runs the reference's 400 / 150 / 400
+REHEARSAL_STEPS = (16, 8, 16)
+REHEARSAL_FULL_STEPS = (400, 150, 400)
+REHEARSAL_TIME_DETECT = 32
+REHEARSAL_ARTIFACT = os.path.join(ROOT, "docs", "artifacts", "three_stage_rehearsal.json")
+# the default depth's budgets: at 16 / 8 / 16 mini-steps 866-926 of the
+# 1000 proposals survive NMS, so a budget must sit above them to be safe
+REHEARSAL_SMOKE_BUDGETS = (992, 960, 600)
+# K3 at the rehearsal's beam decode: the 4 x 256 decoder's 4 heads of 64
+# dims, 1 + max_length 40 slots, an f32 cache; the items are the run's own
+# decode row budget (the largest of its batches), x 4 beams
+K3_REHEARSAL_SHAPE = dict(beams=BEAMS, heads=4, slots=41, dim=64)
+K3_REHEARSAL_SLOTS = (2, 20, 39)
+# the full run's trend bands against the JAX artifact (PERF.md): each
+# stage's final validation loss_total at most this factor times JAX's
+REHEARSAL_LOSS_FACTOR = 1.5
+REHEARSAL_BANDS = {"avg_detections_per_image": 26.0, "avg_iou": 0.80,
+                   "region_abnormal_f1": 0.85, "region_selection_recall": 0.9,
+                   "stage3_loss_lm": 4.0}
+
+
+def cpu_paths_count_nothing(np, torch):
+    """K1-K3's wrappers on CPU tensors: their plain versions' results, and
+    no launch counted."""
+    from rgrg_tpu_torch.ops.beam_attn import beam_attention, beam_attention_plain
+    from rgrg_tpu_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+    from rgrg_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+    cpu = torch.device("cpu")
+    before = mesh_counts()
+    boxes, valid = nms_inputs(np, torch, cpu, n=256)
+    check(torch.equal(nms_keep_mask(boxes, valid, 0.7), nms_keep_mask_plain(boxes, valid, 0.7)),
+          "K1's wrapper on the CPU is not its plain version")
+    feats, rboxes = roi_inputs(np, torch, cpu, torch.float32, b=2, n=8, c=16)
+    check(torch.equal(roi_align(feats, rboxes), roi_align_plain(feats, rboxes)),
+          "K2's wrapper on the CPU is not its plain version")
+    q, k, v, anc, _ = k3_inputs(np, torch, cpu, "f32", 5,
+                                shape=dict(items=2, beams=BEAMS, heads=4, slots=8, dim=64))
+    check(torch.equal(beam_attention(q, k, v, anc, 5, scale=0.125),
+                      beam_attention_plain(q, k, v, anc, 5, scale=0.125)),
+          "K3's wrapper on the CPU is not its plain version")
+    check(mesh_counts() == before, f"a wrapper counted a launch on the CPU: {before} -> "
+          f"{mesh_counts()}")
+
+
+def rehearsal_bands(summary, reference, first_val):
+    """The full run's bands: {name: (value, limit, held)}."""
+    stages, ev = summary["stages"], summary["final_eval"]
+    bands = {}
+    for name in ("stage1", "stage2", "stage3"):
+        limit = REHEARSAL_LOSS_FACTOR * reference["stages"][name]["final_val_losses"]["loss_total"]
+        got = stages[name]["final_val_losses"]["loss_total"]
+        bands[f"{name} final loss_total"] = (got, limit, got <= limit)
+    got = stages["stage1"]["final_val_losses"]["loss_total"]
+    bands["stage1 final below its first validation"] = (got, first_val, got < first_val)
+    lb = REHEARSAL_BANDS
+    for name, got, limit in (
+            ("avg_detections_per_image", ev["object_detector"]["avg_detections_per_image"],
+             lb["avg_detections_per_image"]),
+            ("avg_iou", ev["object_detector"]["avg_iou"], lb["avg_iou"]),
+            ("region_abnormal f1", ev["region_abnormal"]["f1"], lb["region_abnormal_f1"]),
+            ("region_selection recall", ev["region_selection"]["all"]["recall"],
+             lb["region_selection_recall"])):
+        bands[name] = (got, limit, got >= limit)
+    got = stages["stage3"]["final_val_losses"]["loss_lm"]
+    bands["stage3 loss_lm"] = (got, lb["stage3_loss_lm"], got <= lb["stage3_loss_lm"])
+    closed = ev["language_generation"]["rows_closed_before_max_length"]
+    bands["rows closed before max_length"] = (closed, 0, closed > 0)
+    budget = summary["proposal_budget"]
+    bands["survivors_max below capacity"] = (budget["survivors_max"],
+                                             budget["post_nms_capacity"],
+                                             budget["survivors_max"] < budget["post_nms_capacity"])
+    safe = budget["smallest_safe_budget_tested"]
+    bands["a tested budget is safe"] = (safe, None, safe is not None)
+    return bands
+
+
+def phase_rehearsal(np, torch, dev, result, full=False):
+    """22. The three-stage rehearsal (tools/three_stage_rehearsal.py) at the
+    reference rehearsal's widths: ResNet-50 (DetectorConfig()), a 4 x 256
+    GPT-2 with 4 heads over the dummy tokenizer's 257 tokens, batch 8,
+    sequences of 40, f32 with TF32 off, on its synthetic corpus: stage 1 ->
+    stage 2 -> stage 3 through train.loop.train with warm-start handoffs,
+    evaluate_model at beam 4 (max_length 40, early stopping), then the
+    proposal-budget check (tools/validate_proposal_budget.py) on the stage-3
+    checkpoint with --ladder and detect timed at B=32. Default depth 16 / 8
+    / 16 mini-steps, 1 evaluation batch and the budgets
+    REHEARSAL_SMOKE_BUDGETS; full=True (`--rehearsal-only`) 400 / 150 / 400,
+    3 batches and the tool's budgets, written to
+    chiprun_out/{three_stage_rehearsal,proposal_budget_trained}.json and
+    held to the trend bands of PERF.md. First K1 at B=8 x N=2000 and B=32
+    x N=1000 against its plain version, and K1-K3's wrappers on CPU
+    tensors (no launch counted); after the run K3 at the decode's shape
+    (the run's largest row budget x 4 beams). Checks that stage 2 begins
+    with stage 1's final detector and stage 3 with stage 2's params bit
+    for bit (the tool's watch_handoffs), every loss finite, K1-K3 launched
+    during the run, a tested budget safe and detect timed, and the
+    summary's keys those of the JAX artifact (plus the port's additions).
+    Returns the run's K1-K3 launches."""
+    import shutil
+    from rgrg_tpu_torch.eval import evaluator
+    from rgrg_tpu_torch.tools import three_stage_rehearsal as rehearsal
+
+    t_phase = time.perf_counter()
+    result["nms_rehearsal"] = {f"B={b} N={n}": nms_row(np, torch, dev, result, b, n)
+                               for b, n in ((8, 2000), (32, 1000))}
+    cpu_paths_count_nothing(np, torch)
+
+    steps = REHEARSAL_FULL_STEPS if full else REHEARSAL_STEPS
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    out = os.path.join(out_dir, "three_stage_rehearsal.json" if full
+                       else "three_stage_rehearsal_smoke.json")
+    argv = ["--stage1-steps", str(steps[0]), "--stage2-steps", str(steps[1]),
+            "--stage3-steps", str(steps[2]), "--eval-batches", "3" if full else "1",
+            "--num-figure-images", "0", "--time-detect", str(REHEARSAL_TIME_DETECT),
+            "--run-dir", os.path.relpath(REHEARSAL_DIR), "--out", os.path.relpath(out),
+            "--device", "cuda"]
+    if full:
+        argv += ["--budget-out",
+                 os.path.relpath(os.path.join(out_dir, "proposal_budget_trained.json"))]
+    else:
+        argv += ["--budgets"] + [str(b) for b in REHEARSAL_SMOKE_BUDGETS]
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+
+    step_ms, vals = {1: [], 2: [], 3: []}, {1: [], 2: [], 3: []}
+    train_losses = {1: [], 2: [], 3: []}
+    val_losses = evaluator.validation_losses
+
+    def timed_step(stage, step):
+        def run(state, batch, rng):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, losses = step(state, batch, rng)
+            torch.cuda.synchronize()
+            step_ms[stage].append((time.perf_counter() - t) * 1e3)
+            train_losses[stage].append({k: float(v) for k, v in losses.items()})
+            return state, losses
+        return run
+
+    def recording_val(*a, **kw):
+        losses = val_losses(*a, **kw)
+        vals[seen["entering"][-1]].append(losses)
+        return losses
+
+    reset_mesh_counts()
+    evaluator.validation_losses = recording_val
+    try:
+        with rehearsal.watch_handoffs(REHEARSAL_DIR, wrap_step=timed_step) as seen:
+            summary, _ = quiet(rehearsal.main, argv)
+    finally:
+        evaluator.validation_losses = val_losses
+    launches = mesh_counts()
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    check(seen["entering"] == [1, 2, 3], f"stages entered {seen['entering']}")
+    last = [os.path.join(f"stage{n}", "last") for n in (1, 2, 3)]
+    check(seen["loaded"] == last + last[2:],
+          f"checkpoints loaded {seen['loaded']}: each stage's reload check, then the budget "
+          f"check's stage 3")
+    for what in ("stage 2 begins with stage 1's final detector",
+                 "stage 3 begins with stage 2's params", "stage 3 moved the decoder"):
+        check(seen.get(what, False), f"not so: {what}")
+    check(all(np.isfinite(v) for ls in train_losses.values() for x in ls for v in x.values()),
+          "a training loss is not finite")
+    check(all(np.isfinite(v) for s in summary["stages"].values()
+              for v in s["final_val_losses"].values())
+          and all(np.isfinite(v) for vs in vals.values() for x in vs for v in x.values()),
+          "a validation loss is not finite")
+    check([len(step_ms[s]) for s in (1, 2, 3)] == list(steps), f"mini-steps {step_ms}")
+    n_steps = sum(steps)
+    check(launches["nms"] >= n_steps and launches["roi_align"] >= 2 * n_steps
+          and launches["beam_attention"] > 0,
+          f"K1-K3 did not run on the rehearsal's path: {launches}")
+    with open(REHEARSAL_ARTIFACT) as f:
+        reference = json.load(f)
+    check(rehearsal.reference_key_paths(summary) == rehearsal.key_paths(reference),
+          "the summary's keys differ from the JAX artifact's: "
+          f"{sorted(rehearsal.reference_key_paths(summary) ^ rehearsal.key_paths(reference))}")
+    ev, budget = summary["final_eval"], summary["proposal_budget"]
+    lg = ev["language_generation"]
+    detect_key = f"detect_ms_at_B{REHEARSAL_TIME_DETECT}"
+    check(budget["smallest_safe_budget_tested"] is not None and detect_key in budget,
+          f"no tested budget is safe, or detect was not timed: survivors max "
+          f"{budget['survivors_max']}, agreement {budget['budget_agreement']}")
+
+    # K3 at the shape this run's decode gave it
+    shape = dict(K3_REHEARSAL_SHAPE, items=max(lg["row_budgets"]))
+    phase_beam_attn(np, torch, dev, result, shape=shape, slots=K3_REHEARSAL_SLOTS,
+                    kinds=("f32",), key="beam_attention_rehearsal")
+    result["beam_attention_rehearsal_shape"] = shape
+
+    row = {"steps": list(steps), "launches": launches, "summary": summary,
+           "validations": {str(s): v for s, v in vals.items()},
+           "train_losses": {str(s): v for s, v in train_losses.items()},
+           "ms_per_mini_step": {str(s): v for s, v in step_ms.items()}}
+    for s in (1, 2, 3):
+        ms = step_ms[s]
+        steady = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+        row[f"stage{s}_steady_ms"] = steady
+        st = summary["stages"][f"stage{s}"]
+        log(f"rehearsal stage {s}: {len(ms)} mini-steps of batch 8, first {ms[0]:.1f} ms, "
+            f"median after the first {steady:.1f} ms; stage wall {st['wall_seconds']} s "
+            f"(validations, checkpoints and the reload check included); final validation "
+            f"{st['final_val_losses']} [{result['card']}]")
+        # the trajectory: each loss's mean over windows of 25 mini-steps,
+        # and every validation
+        window = 25
+        for key in train_losses[s][0]:
+            means = [np.mean([x[key] for x in train_losses[s][i:i + window]])
+                     for i in range(0, len(train_losses[s]), window)]
+            log(f"rehearsal stage {s} training {key}, means of {window} mini-steps: "
+                + " ".join(f"{m:.4g}" for m in means))
+        for i, v in enumerate(vals[s]):
+            log(f"rehearsal stage {s} validation {i + 1}: "
+                + ", ".join(f"{k} {x:.4f}" for k, x in v.items()))
+    log(f"rehearsal evaluation: {ev['wall_seconds']} s, decode {lg['decode_seconds']} s; "
+        f"detections/image {ev['object_detector']['avg_detections_per_image']:.3f}, IoU "
+        f"{ev['object_detector']['avg_iou']:.4f}, selection recall "
+        f"{ev['region_selection']['all']['recall']:.4f}, abnormal F1 "
+        f"{ev['region_abnormal']['f1']:.4f}; rows closed before max_length "
+        f"{lg['rows_closed_before_max_length']} of {lg['decoded_rows']}; row budgets "
+        f"{lg['row_budgets']}; cascade {lg['cascade']} [{result['card']}]")
+    log(f"rehearsal budget check: survivors max {budget['survivors_max']} mean "
+        f"{budget['survivors_mean']} of {budget['post_nms_capacity']}; agreement "
+        f"{budget['budget_agreement']}; smallest safe {budget['smallest_safe_budget_tested']}; "
+        f"detect ms at B={REHEARSAL_TIME_DETECT} {budget[detect_key]} [{result['card']}]")
+    if full:
+        bands = rehearsal_bands(summary, reference, vals[1][0]["loss_total"])
+        row["bands"] = {k: {"value": v, "limit": lim, "held": held}
+                        for k, (v, lim, held) in bands.items()}
+        for k, (v, lim, held) in bands.items():
+            log(f"rehearsal band {k}: {v} against {lim}: {'held' if held else 'MISSED'}")
+        missed = [k for k, (_, _, held) in bands.items() if not held]
+        check(not missed, f"rehearsal bands missed: {missed}")
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"rehearsal: phase 22 took {row['seconds']:.1f} s; launches {launches}")
+    result["rehearsal"] = row
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3841,37 +4119,55 @@ def main() -> int:
         # phase 21 alone, e.g. on four cards: `python3 chip_smoke.py --mesh-only`
         phase_mesh(np, torch, dev, result)
         return finish(result, t_start, None, card, kind, "chip_smoke_mesh.json")
-    phase_nms(np, torch, dev, result)
-    phase_roi(np, torch, dev, result)
-    phase_train_kernels(np, torch, dev, result)
-    phase_beam_attn(np, torch, dev, result)
-    phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_LONG_SLOTS,
-                    kinds=("bf16", "f32"), key="beam_attention_long")
-    phase_beam_attn(np, torch, dev, result, slots=K3_T0_SLOTS, key="beam_attention_t0", t0=1)
-    phase_beam_attn(np, torch, dev, result, shape=K3_LONG_SHAPE, slots=K3_T0_LONG_SLOTS,
-                    key="beam_attention_long_t0", t0=1)
-    phase_dense_wint8(np, torch, dev, result)
-    distilbert = phase_soft_dedup(np, torch, dev, result)
+    if "--rehearsal-only" in sys.argv[1:]:
+        # phase 22 at the reference rehearsal's depth: `python3 chip_smoke.py --rehearsal-only`
+        phase_rehearsal(np, torch, dev, result, full=True)
+        return finish(result, t_start, None, card, kind, "chip_smoke_rehearsal.json")
+    seconds = result["phase_seconds"] = {}
+
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its wall seconds kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("3 nms", phase_nms, np, torch, dev, result)
+    timed("4 roi_align", phase_roi, np, torch, dev, result)
+    timed("14ab train kernels", phase_train_kernels, np, torch, dev, result)
+    timed("5 beam_attn", phase_beam_attn, np, torch, dev, result)
+    timed("5a beam_attn long", phase_beam_attn, np, torch, dev, result, shape=K3_LONG_SHAPE,
+          slots=K3_LONG_SLOTS, kinds=("bf16", "f32"), key="beam_attention_long")
+    timed("15 beam_attn t0", phase_beam_attn, np, torch, dev, result, slots=K3_T0_SLOTS,
+          key="beam_attention_t0", t0=1)
+    timed("15 beam_attn long t0", phase_beam_attn, np, torch, dev, result, shape=K3_LONG_SHAPE,
+          slots=K3_T0_LONG_SLOTS, key="beam_attention_long_t0", t0=1)
+    timed("6 dense_wint8", phase_dense_wint8, np, torch, dev, result)
+    distilbert = timed("6a soft dedup", phase_soft_dedup, np, torch, dev, result)
     with distilbert_dir(distilbert):
-        phase_reference(np, torch, dev)
-        phase_eval_reference(np, torch, dev, result)
-    phase_reference_serving(np, torch, dev)
-    phase_train_reference(np, torch, dev, result)
+        timed("7 reference", phase_reference, np, torch, dev)
+        timed("7a eval reference", phase_eval_reference, np, torch, dev, result)
+    timed("7 reference serving", phase_reference_serving, np, torch, dev)
+    timed("14c train reference", phase_train_reference, np, torch, dev, result)
     cfg = full_width_config()
-    launches, gen = phase_main(np, torch, dev, result, cfg)
-    k4_launches = phase_serving(np, torch, dev, result, gen, cfg)
+    launches, gen = timed("8-10 main path", phase_main, np, torch, dev, result, cfg)
+    k4_launches = timed("11 serving", phase_serving, np, torch, dev, result, gen, cfg)
     with distilbert_dir(distilbert):
-        phase_soft_dedup_full_width(np, torch, dev, result, gen, cfg)
-        phase_eval_full_width(np, torch, dev, result, gen, cfg)
-    no_image_launches = phase_no_image(np, torch, dev, result, gen, cfg)
-    phase_sampling(np, torch, dev, result, gen, cfg)
+        timed("12 soft dedup full width", phase_soft_dedup_full_width, np, torch, dev, result,
+              gen, cfg)
+        timed("13 eval full width", phase_eval_full_width, np, torch, dev, result, gen, cfg)
+    no_image_launches = timed("16 no_image", phase_no_image, np, torch, dev, result, gen, cfg)
+    timed("17 sampling", phase_sampling, np, torch, dev, result, gen, cfg)
     del gen
     torch.cuda.empty_cache()
-    train_launches = phase_train_full_width(np, torch, dev, result)
-    cli_launches = phase_train_cli(np, torch, dev, result)
-    phase_chexbert_train(np, torch, dev, result)
-    offline_launches = phase_offline(np, torch, dev, result)
-    mesh_launches = phase_mesh(np, torch, dev, result)
+    train_launches = timed("14d train full width", phase_train_full_width, np, torch, dev,
+                           result)
+    cli_launches = timed("18 train CLI", phase_train_cli, np, torch, dev, result)
+    timed("19 chexbert train", phase_chexbert_train, np, torch, dev, result)
+    offline_launches = timed("20 offline", phase_offline, np, torch, dev, result)
+    mesh_launches = timed("21 mesh", phase_mesh, np, torch, dev, result)
+    rehearsal_launches = timed("22 rehearsal", phase_rehearsal, np, torch, dev, result)
     k4 = result["dense_wint8_row"] = k4_summary(result["dense_wint8"])
 
     k1, k2 = result["nms"], result["roi_align"]["bf16"]
@@ -3879,27 +4175,34 @@ def main() -> int:
     k3 = result["beam_attention"]["bf16 slot 31"]
     k3t0, k3t0_long = (result["beam_attention_t0"]["bf16 slot 31"],
                        result["beam_attention_long_t0"]["bf16 slot 303"])
+    k1r = result["nms_rehearsal"]["B=8 N=2000"]
+    k3r = result["beam_attention_rehearsal"]["f32 slot 20"]
+    k3r_shape = result["beam_attention_rehearsal_shape"]
+    k3r_lanes = k3r_shape["items"] * k3r_shape["beams"]
     kernels_line = {"kernels": [
         {"name": "nms_keep_mask", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/nms.cu",
          "replaces": "rgrg_tpu/ops/nms_pallas.py:52",
          "launches": launches["nms"] + train_launches["nms"] + cli_launches["nms"]
-                     + offline_launches["nms"] + mesh_launches["nms"],
+                     + offline_launches["nms"] + mesh_launches["nms"]
+                     + rehearsal_launches["nms"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
          "train_ms": k1t["ms"], "train_bound_ms": k1t["bound_ms"],
+         "rehearsal_ms": k1r["ms"], "rehearsal_bound_ms": k1r["bound_ms"],
          "shape": "B=8 x N=1000 (serving); train_*: B=16 x N=2000; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
                   "and the evaluation of its checkpoint, phase 20's evaluate, "
-                  "generate_reports and serve CLIs and traced request, and phase 21's "
-                  "data-parallel serving and training (every rank)"},
+                  "generate_reports and serve CLIs and traced request, phase 21's "
+                  "data-parallel serving and training (every rank), and phase 22's "
+                  "rehearsal; rehearsal_*: B=8 x N=2000"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
          "launches": launches["roi_align"] + train_launches["roi_align"]
                      + cli_launches["roi_align"] + offline_launches["roi_align"]
-                     + mesh_launches["roi_align"],
+                     + mesh_launches["roi_align"] + rehearsal_launches["roi_align"],
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -3910,26 +4213,31 @@ def main() -> int:
                   "f32, the backward a torch.bmm over the fused weights; launches: the "
                   "beam-4 serving requests, the full-width training runs, the train CLI "
                   "and the evaluation of its checkpoint, phase 20's evaluate, "
-                  "generate_reports and serve CLIs and traced request, and phase 21's "
-                  "data-parallel serving and training (every rank)"},
+                  "generate_reports and serve CLIs and traced request, phase 21's "
+                  "data-parallel serving and training (every rank), and phase 22's "
+                  "rehearsal"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",
          "launches": launches["beam_attention"] + no_image_launches
                      + cli_launches["beam_attention"] + offline_launches["beam_attention"]
-                     + mesh_launches["beam_attention"],
+                     + mesh_launches["beam_attention"] + rehearsal_launches["beam_attention"],
          "max_abs_err": max(k3["max_abs_err"], k3t0["max_abs_err"]),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "warm_ms": k3["warm_ms"],
          "t0_ms": k3t0["ms"], "t0_bound_ms": k3t0["bound_ms"],
          "t0_long_ms": k3t0_long["ms"], "t0_long_bound_ms": k3t0_long["bound_ms"],
+         "rehearsal_ms": k3r["ms"], "rehearsal_bound_ms": k3r["bound_ms"],
          "shape": "384 lanes (96 items x 4 beams), 16 heads x 64 dims, slot 31, bf16 "
                   "cache; ms cold (caches cycled past the L2), warm_ms relaunched on one; "
                   "t0_*: from slot 1 (the no_image decode), slot 31, and 256 lanes x 305 "
                   "slots at slot 303; launches: the beam-4 serving requests, the no_image "
-                  "beam, the evaluation of the train CLI's checkpoint, and phase 20's "
+                  "beam, the evaluation of the train CLI's checkpoint, phase 20's "
                   "evaluate and generate_reports CLIs (max_length 300) and traced request, "
-                  "and phase 21's data-parallel beam batches (every rank)"},
+                  "phase 21's data-parallel beam batches (every rank) and phase 22's "
+                  f"rehearsal; rehearsal_*: {k3r_lanes} lanes ({k3r_shape['items']} items x "
+                  f"{k3r_shape['beams']} beams, the rehearsal decode's row budget), 4 heads x "
+                  "64 dims, 41 slots, f32 cache, slot 20"},
         {"name": "dense_wint8", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/dense_wint8.cu",
          "replaces": "rgrg_tpu/ops/dense_wint8_pallas.py:70",

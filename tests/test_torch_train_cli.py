@@ -19,7 +19,8 @@ words whose ids fit the decoder's 50-token vocabulary.
 - ReportGenerator.from_checkpoint(<run_dir>/last) serves the trained
   params (the same reports as a generator built on the state's params);
   the evaluate and bbox-variations CLIs take the directory; the three CLIs
-  default to --device cuda and raise without a card.
+  and the rehearsal and proposal-budget tools default to --device cuda and
+  raise without a card.
 - The reference's behaviour pinned here: JAX's from_orbax hands a
   TrainState checkpoint's whole {"params", "opt_state", "step"} tree to
   the generator, which fails on params["detector"]; JAX's warm start from
@@ -48,6 +49,8 @@ from rgrg_tpu.train import trainer as jtrainer
 import rgrg_tpu_torch.evaluate as tevaluate
 import rgrg_tpu_torch.evaluate_bbox_variations as tbbox
 import rgrg_tpu_torch.train.__main__ as tcli
+import rgrg_tpu_torch.tools.three_stage_rehearsal as trehearsal
+import rgrg_tpu_torch.tools.validate_proposal_budget as tbudget
 from rgrg_tpu_torch.core import config as TC
 from rgrg_tpu_torch.core.checkpoint import load_params, save_checkpoint
 from rgrg_tpu_torch.inference import ReportGenerator
@@ -294,21 +297,26 @@ def test_evaluate_and_bbox_cli_take_the_checkpoint_dir(setup, trained, tmp_path)
     assert all(0.0 <= v <= 1.0 for v in res.values())
 
 
-@pytest.mark.parametrize("cli", ["train", "evaluate", "bbox"])
+@pytest.mark.parametrize("cli", ["train", "evaluate", "bbox", "rehearsal", "budget"])
 def test_clis_default_to_the_card_and_raise_without_one(setup, cli, tmp_path):
     s = setup
     argv = {"train": _argv(s, tmp_path / "run")[:-2],
             "evaluate": ["--checkpoint", s["full"], "--tokenizer-dir", s["tok"],
                          "--test-csv", s["val_csv"]],
             "bbox": ["--checkpoint", s["full"], "--tokenizer-dir", s["tok"],
-                     "--csv", s["val_csv"]]}[cli]
-    main = {"train": tcli.main, "evaluate": tevaluate.main, "bbox": tbbox.main}[cli]
-    parser = {"train": tcli, "evaluate": tevaluate, "bbox": tbbox}[cli].build_parser()
+                     "--csv", s["val_csv"]],
+            "rehearsal": ["--shallow", "--run-dir", str(tmp_path / "rehearsal"),
+                          "--out", str(tmp_path / "rehearsal.json")],
+            "budget": ["--shallow", "--steps", "1"]}[cli]
+    module = {"train": tcli, "evaluate": tevaluate, "bbox": tbbox, "rehearsal": trehearsal,
+              "budget": tbudget}[cli]
+    main, parser = module.main, module.build_parser()
     assert parser.parse_args(argv).device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        main(argv, cfg=s["cfg"] if cli == "train" else s["tcfg"])
+        main(argv, **({} if cli == "budget" else
+                      {"cfg": s["cfg"] if cli == "train" else s["tcfg"]}))
 
 
 def test_init_from_torch_detector_only(setup, tmp_path):

@@ -42,13 +42,21 @@ def decision_margins(det: RegionDetector, images: torch.Tensor,
     the objectness order over the top-k+1, IoU against the NMS threshold,
     the best vs second class of each kept proposal, the best vs second
     proposal of each detected region, and the selection logit against its
-    threshold."""
+    threshold. The class and region gaps are over the proposals the RoI
+    head sees: under an inference_proposal_budget, the compacted ones."""
     cfg = det.cfg
     feats = det.backbone(images)
     obj, _ = det.rpn_head(feats)
     v, _ = stable_topk(obj.float(), cfg.rpn.pre_nms_top_n_test + 1)
     boxes, keep = det.rpn_proposals(feats)
     iou = (pairwise_iou(boxes) - cfg.rpn.nms_thresh).abs().nan_to_num(1.0)
+    budget = cfg.roi.inference_proposal_budget
+    if budget is not None and budget < boxes.shape[1]:
+        # the RoI head's proposals under a budget, as RegionDetector.forward
+        # compacts them
+        order = torch.sort((~keep).to(torch.int32), dim=1, stable=True).indices[:, :budget]
+        boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+        keep = torch.gather(keep, 1, order)
     cls, _, _ = det.roi_forward(feats, boxes)
     probs = torch.softmax(cls, -1)[..., 1:]
     top2 = probs.topk(2, dim=-1).values
