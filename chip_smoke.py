@@ -2505,6 +2505,16 @@ def phase_sampling(np, torch, dev, result, gen, cfg):
                               greedy_ms=greedy_ms)
 
 
+def cli_xrays(np, raw_shape=RAW_SHAPE):
+    """The train CLI phases' CLI_IMAGES uint8 X-rays held in memory
+    ({"mem://<i>": image}, seed 41): phase 18 installs them in this
+    process, phase 21 in each rank's own (a spawned rank does not inherit
+    images_in_memory)."""
+    rng = np.random.default_rng(41)
+    return {f"mem://{i}": rng.integers(0, 256, raw_shape, dtype=np.uint8)
+            for i in range(CLI_IMAGES)}
+
+
 def write_tokenizer_dir(tok, path):
     """vocab.json and merges.txt of a GPT2Tokenizer, for --tokenizer-dir."""
     os.makedirs(path, exist_ok=True)
@@ -2581,9 +2591,7 @@ def phase_train_cli(np, torch, dev, result):
     os.makedirs(work)
     tok = report_tokenizer(mcfg.decoder.vocab_size, mcfg.decoder.eos_token_id, byte_level=True)
     tok_dir = write_tokenizer_dir(tok, os.path.join(work, "tokenizer"))
-    rng = np.random.default_rng(41)
-    arrays = {f"mem://{i}": rng.integers(0, 256, RAW_SHAPE, dtype=np.uint8)
-              for i in range(CLI_IMAGES)}
+    arrays = cli_xrays(np)
     train_csv = write_split_csv(np, os.path.join(work, "train.csv"), CLI_STEPS * b,
                                 CLI_IMAGES, RAW_SHAPE, seed=42)
     val_csv = write_split_csv(np, os.path.join(work, "val.csv"), max(b, BATCH), CLI_IMAGES,
@@ -3171,6 +3179,8 @@ MESH_TRAIN_STEPS = 4     # mini-steps of train.loop.train by each world: one upd
 MESH_TIMEOUT_S = 300     # the process group's collective timeout
 MESH_REF_SEED = 52       # the small step's 4 images: margins and traps asserted
 MESH_REF_BUDGET = 16     # its LM budget, below the batch's LM-valid rows
+MESH_CLI_DIGESTS = 2     # the train CLI's first batches each rank's rows are checked on
+MESH_LOADER_BATCHES = 6  # batches each loader builds alone on every rank, timed
 
 
 def reference_training_batch(np, torch, seed=None, b=2):
@@ -3423,6 +3433,137 @@ def mesh_train(np, torch, dev, mesh, job):
     return out
 
 
+def mesh_train_cli(np, torch, dev, mesh, job):
+    """A rank's part of `python -m rgrg_tpu_torch.train` over the ranks
+    (`_train_rank`, --workers CLI_WORKERS: each rank loads only its rows)
+    at job["cli"]["cfg"], from split CSVs over the in-memory X-rays,
+    installed here from their seed. First both loaders alone on the host,
+    every rank at once, MESH_LOADER_BATCHES batches each: the replicated
+    one's global batches (what every rank built before) and the rank-local
+    one's rows. Then the CLI: CLI_STEPS mini-steps and one validation
+    (rank 0), the launch counters from 0. Returns the loaders' host ms a
+    batch, the digests of the CLI's first MESH_CLI_DIGESTS batches,
+    its loader's RankLoadStats, ms per mini-step, the wait for data and
+    the wall time per mini-step, whether every loss was finite, the
+    checkpoints this rank saved and (rank 0) which exist and the
+    validation losses, the launches."""
+    import dataclasses
+    import shutil
+    import rgrg_tpu_torch.train.__main__ as cli
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.data.dataset import RankLoadStats, RGRGDataset, read_split_csv
+    from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
+    from rgrg_tpu_torch.train import loop, trainer
+    from tests.torch_mesh_ranks import batch_digest
+
+    c = job["cli"]
+    b = c["cfg"].train.batch_size
+    cuda = dev.type == "cuda"
+    out = {}
+    host = mesh_lib.host_mesh(mesh)
+    with images_in_memory(cli_xrays(np, job["raw_shape"])):
+        tok = GPT2Tokenizer.from_dir(c["tok_dir"])
+        rows = read_split_csv(c["train_csv"])
+        loaders = {"replicated": lambda: RGRGDataset(rows, tok, train=True).batches(
+                       b, shuffle=True, workers=CLI_WORKERS),
+                   "rank_local": lambda: RGRGDataset(rows, tok, train=True).rank_batches(
+                       b, mesh.rank, mesh.size, lambda f: mesh_lib.gather_objects(f, host),
+                       shuffle=True, workers=CLI_WORKERS)}
+        for name, make in loaders.items():
+            mesh_lib.barrier(host)   # the ranks build at once, as in a run
+            it, ms = make(), []
+            for _ in range(MESH_LOADER_BATCHES):
+                t = time.perf_counter()
+                next(it)
+                ms.append((time.perf_counter() - t) * 1e3)
+            it.close()
+            out[f"{name}_host_ms"] = ms
+
+        stats, digests, marks, saved = RankLoadStats(), [], [], []
+        rank_batches, make_step, save = (RGRGDataset.rank_batches, trainer.make_train_step,
+                                         loop.save_checkpoint)
+
+        def recorded_batches(self, *a, **kw):
+            for batch in rank_batches(self, *a, **dict(kw, stats=stats)):
+                if len(digests) < MESH_CLI_DIGESTS:
+                    digests.append(batch_digest(batch))
+                yield batch
+
+        def timed_step(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run(state, batch, rng):
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                state, losses = step(state, batch, rng)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                marks.append((t, time.perf_counter(),
+                              all(bool(torch.isfinite(v).all()) for v in losses.values())))
+                return state, losses
+            return run
+
+        def recorded_save(path, *a, **kw):
+            saved.append(os.path.basename(path))
+            return save(path, *a, **kw)
+
+        run_dir = os.path.join(job["dir"], f"cli_world{mesh.size}")
+        argv = ["--stage", "3", "--train-csv", c["train_csv"], "--val-csv", c["val_csv"],
+                "--tokenizer-dir", c["tok_dir"], "--run-dir", run_dir,
+                "--max-steps", str(CLI_STEPS), "--workers", str(CLI_WORKERS),
+                "--device", dev.type]
+        RGRGDataset.rank_batches, trainer.make_train_step = recorded_batches, timed_step
+        loop.save_checkpoint = recorded_save
+        reset_mesh_counts()
+        t0 = time.perf_counter()
+        try:
+            cli._train_rank(mesh.rank, cli.build_parser().parse_args(argv), c["cfg"])
+        finally:
+            RGRGDataset.rank_batches, trainer.make_train_step = rank_batches, make_step
+            loop.save_checkpoint = save
+        if cuda:
+            torch.cuda.synchronize(dev)
+        out["total_s"] = time.perf_counter() - t0
+        out["counts"] = mesh_counts()
+    n = len(marks)
+    out.update(digests=digests, stats=dataclasses.asdict(stats), saved=saved,
+               finite=all(f for *_, f in marks), steps=n,
+               step_ms=[(e - s) * 1e3 for s, e, _ in marks],
+               wall_ms=[(marks[i + 1][0] - marks[i][0]) * 1e3 for i in range(n - 1)],
+               wait_ms=[(marks[i + 1][0] - marks[i][1]) * 1e3 for i in range(n - 1)])
+    if mesh.rank == 0:
+        out["files"] = {name: os.path.isfile(os.path.join(run_dir, name, "train_state.pt"))
+                        for name in ("best", "last")}
+        out["val"] = [r["val/loss"] for r in map(json.loads, open(
+            os.path.join(run_dir, "metrics.jsonl"))) if "val/loss" in r]
+    mesh_lib.barrier(mesh)
+    if mesh.rank == 0:
+        shutil.rmtree(run_dir, ignore_errors=True)   # two 4.5 GB training states
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_expected_digests(np, job, worlds):
+    """Per world and rank, the digests of its rows of the replicated
+    loader's first MESH_CLI_DIGESTS global batches (--workers CLI_WORKERS),
+    built in this process on the CLI's split."""
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    from rgrg_tpu_torch.data.dataset import RGRGDataset, read_split_csv
+    from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
+    from tests.torch_mesh_ranks import batch_digest
+    c = job["cli"]
+    with images_in_memory(cli_xrays(np, job["raw_shape"])):
+        ds = RGRGDataset(read_split_csv(c["train_csv"]), GPT2Tokenizer.from_dir(c["tok_dir"]),
+                         train=True)
+        it = ds.batches(c["cfg"].train.batch_size, shuffle=True, workers=CLI_WORKERS)
+        batches = [next(it) for _ in range(MESH_CLI_DIGESTS)]
+        it.close()
+    return {n: [[batch_digest(mesh_lib.shard_pytree_batch(g, mesh_lib.Mesh(n, r)))
+                 for g in batches] for r in range(n)] for n in worlds}
+
+
 def _grad_rel_all(torch, grads, ref):
     """Relative L2 distance of two gradients, each the concatenation of
     its tensors."""
@@ -3575,7 +3716,71 @@ def mesh_job(rank, job):
         out["serve"] = mesh_serve(np, torch, dev, mesh, job)
     if job.get("train"):
         out["train"] = mesh_train(np, torch, dev, mesh, job)
+    if job.get("train_cli"):
+        out["train_cli"] = mesh_train_cli(np, torch, dev, mesh, job)
     return out
+
+
+def mesh_cli_checks(ranks, world, b, want_digests, train_chunks, expect):
+    """Phase 21's checks of the train CLI over `world` ranks (mesh_train_cli
+    on each), through `expect`; returns its record: per rank the loaders'
+    host ms a batch (each, and the mean after the first: the replicated
+    loader builds ahead across batches), ms per mini-step, the wait for
+    data and the wall per mini-step (medians after the first), images/s,
+    samples built and rows received."""
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    for r in ranks:
+        c, i = r["train_cli"], r["rank"]
+        expect(c["digests"] == want_digests[i],
+               f"rank {i}: the train CLI's first batches are not its rows of the replicated "
+               f"loader's")
+        st = c["stats"]
+        expect(st["built"] == st["rows"] == CLI_STEPS * (b // world)
+               and st["unreadable"] == 0 and st["rounds"] == CLI_STEPS,
+               f"rank {i}: the rank-local loader built {st}")
+        expect(c["steps"] == CLI_STEPS and c["finite"],
+               f"rank {i}: train CLI {c['steps']} mini-steps, losses finite {c['finite']}")
+        expect(c["saved"] == (["best", "last"] if i == 0 else []),
+               f"rank {i}: train CLI saved {c['saved']}")
+        tc = c["counts"]
+        expect(tc["nms"] >= CLI_STEPS and tc["roi_align"] >= train_chunks * CLI_STEPS,
+               f"rank {i}: train CLI launches {tc}")
+    lead = ranks[0]["train_cli"]
+    expect(lead["files"] == {"best": True, "last": True}
+           and len(lead["val"]) == 1 and lead["val"][0] == lead["val"][0],
+           f"train CLI: checkpoints {lead['files']}, validation {lead['val']}")
+    row = {"val_loss": lead["val"], "ranks": []}
+    for r in ranks:
+        c = r["train_cli"]
+        wall = med(c["wall_ms"][1:])
+        row["ranks"].append(dict(
+            rank=r["rank"], replicated_host_ms=c["replicated_host_ms"],
+            rank_local_host_ms=c["rank_local_host_ms"],
+            replicated_host_ms_mean=mean(c["replicated_host_ms"][1:]),
+            rank_local_host_ms_mean=mean(c["rank_local_host_ms"][1:]),
+            step_ms=c["step_ms"], wait_ms=c["wait_ms"], wall_ms=c["wall_ms"],
+            steady_step_ms=med(c["step_ms"][1:]), steady_wait_ms=med(c["wait_ms"][1:]),
+            steady_wall_ms=wall, rank_images_per_s=c["stats"]["rows"] / CLI_STEPS / wall * 1e3,
+            built=c["stats"]["built"], rows=c["stats"]["rows"], counts=c["counts"],
+            total_s=c["total_s"]))
+    return row
+
+
+def log_mesh_cli(name, row, b, result):
+    fmt = lambda xs: "/".join(f"{x:.0f}" for x in xs)  # noqa: E731
+    rs = row["ranks"]
+    log(f"  {name} train CLI (--workers {CLI_WORKERS}, rank-local loading, global batch {b}, "
+        f"{CLI_STEPS} mini-steps + 1 validation), per rank: host ms a batch, rank-local rows "
+        f"{fmt(r['rank_local_host_ms_mean'] for r in rs)} against the replicated global "
+        f"batch {fmt(r['replicated_host_ms_mean'] for r in rs)} (mean of batches 2-"
+        f"{MESH_LOADER_BATCHES}); mini-step {fmt(r['steady_step_ms'] for r in rs)} ms, waiting "
+        f"for data {fmt(r['steady_wait_ms'] for r in rs)} ms, wall "
+        f"{fmt(r['steady_wall_ms'] for r in rs)} ms (medians after the first) = "
+        f"{'/'.join('%.1f' % r['rank_images_per_s'] for r in rs)} images/s a rank; built "
+        f"{fmt(r['built'] for r in rs)} samples for {fmt(r['rows'] for r in rs)} rows; "
+        f"validation loss {row['val_loss']}; CLI {fmt(r['total_s'] for r in rs)} s; "
+        f"launches {[r['counts'] for r in rs]} [{result['card']}]")
 
 
 def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_SHAPE,
@@ -3612,8 +3817,17 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
     statistics within 1e-5, each tensor's gradient within 1e-2 relative L2
     (phase 14(c)'s bound in the backbone), while the naive port's gradient
     and its total and LM losses fall outside those bounds. ms per batch and per mini-step, the params'
-    replication and peak GB per rank are recorded. Returns the
-    launches of the mesh runs (all ranks)."""
+    replication and peak GB per rank are recorded. Worlds 2 and 4 then run
+    `python -m rgrg_tpu_torch.train` over their ranks (mesh_train_cli:
+    stage 3 at train_cfg, --workers CLI_WORKERS, CLI_STEPS mini-steps and a
+    validation, the X-rays held in memory in each rank): each rank's first
+    batches digest-equal to its rows of the replicated loader's, built
+    here; samples built equal to rows received (no image is unreadable);
+    finite losses; `best` and `last` saved once, by rank 0; K1 and K2 on
+    every rank; both loaders' host ms a batch, the wait for data, ms and
+    wall per mini-step recorded per rank. Returns the launches of the mesh
+    runs (all ranks)."""
+    import dataclasses
     import shutil
     from rgrg_tpu_torch.core import mesh as mesh_lib
     from rgrg_tpu_torch.core.checkpoint import save_checkpoint
@@ -3653,10 +3867,23 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()   # each rank brings its own context
+        # the train CLI over ranks: split CSVs over the in-memory X-rays,
+        # validation after its CLI_STEPS mini-steps
+        b = train_cfg.train.batch_size
+        cli_dir = os.path.join(MESH_DIR, "cli")
+        cli_tok = report_tokenizer(train_cfg.model.decoder.vocab_size,
+                                   train_cfg.model.decoder.eos_token_id, byte_level=True)
+        cli = dict(cfg=dataclasses.replace(train_cfg, train=dataclasses.replace(
+                       train_cfg.train, evaluate_every_k_batches=CLI_STEPS)),
+                   tok_dir=write_tokenizer_dir(cli_tok, os.path.join(cli_dir, "tokenizer")),
+                   train_csv=write_split_csv(np, os.path.join(cli_dir, "train.csv"),
+                                             CLI_STEPS * b, CLI_IMAGES, raw_shape, seed=42),
+                   val_csv=write_split_csv(np, os.path.join(cli_dir, "val.csv"), b,
+                                           CLI_IMAGES, raw_shape, seed=43))
         job = dict(ckpt=ckpt, tok_dir=tok_dir, cfg=cfg, train_cfg=train_cfg, dir=MESH_DIR,
                    raw_shape=raw_shape, max_length=max_length, lm_budget=lm_budget,
                    train_seq=train_seq, serve=True, train=True, ref_batch=ref_batch,
-                   ref_draws=ref_draws)
+                   ref_draws=ref_draws, cli=cli)
         card0 = [f"cuda:{torch.cuda.current_device()}"] if dev.type == "cuda" else None
         worlds = [("world 1", dict(nprocs=1, devices=card0, backend=None)),
                   ("world 2", dict(nprocs=2, devices=card0 and card0 * 2, backend="gloo"))]
@@ -3665,12 +3892,17 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
             n = min(count, 4)
             worlds.append((f"world {n}", dict(nprocs=n, devices=[f"cuda:{i}" for i in range(n)],
                                               backend="nccl")))
+        t = time.perf_counter()
+        cli_digests = cli_expected_digests(np, job, [how["nprocs"] for _, how in worlds[1:]])
+        log(f"mesh: the replicated loader's first {MESH_CLI_DIGESTS} batches of {b} built "
+            f"here in {time.perf_counter() - t:.1f} s")
         runs = {}
         for name, how in worlds:
             t = time.perf_counter()
-            ranks = mesh_lib.launch(mesh_job, how["nprocs"], args=(job,), device=dev.type,
-                                    devices=how["devices"], backend=how["backend"],
-                                    timeout_s=MESH_TIMEOUT_S)
+            ranks = mesh_lib.launch(mesh_job, how["nprocs"],
+                                    args=(dict(job, train_cli=how["nprocs"] > 1),),
+                                    device=dev.type, devices=how["devices"],
+                                    backend=how["backend"], timeout_s=MESH_TIMEOUT_S)
             runs[name] = ranks
             wall = time.perf_counter() - t
             backend = ranks[0]["backend"] or "none"
@@ -3747,6 +3979,12 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
                        and refs[0]["bn_err"] <= 1e-5,
                        f"reference step: parameters {refs[0]['param_diff']}, BN statistics "
                        f"{refs[0]['bn_err']} against world 1")
+            if how["nprocs"] > 1:
+                cli_row = mesh_cli_checks(ranks, how["nprocs"], b, cli_digests[how["nprocs"]],
+                                          train_chunks, expect)
+                for r in ranks:
+                    for k in launches:
+                        launches[k] += r["train_cli"]["counts"][k]
             lead = ranks[0]["train"]
             lr = train_cfg.train.learning_rate
             if how["nprocs"] > 1:
@@ -3780,8 +4018,12 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
                        first_losses_witness=lead["witness"],
                        param_diff=lead.get("param_diff"), bn_err=lead.get("bn_err"),
                        counts=[{c: r["serve"][c]["counts"] for c in ("greedy", "beam")}
-                               | {"train": r["train"]["counts"]} for r in ranks],
+                               | {"train": r["train"]["counts"]}
+                               | ({"train_cli": r["train_cli"]["counts"]} if "train_cli" in r
+                                  else {}) for r in ranks],
                        failed=failed)
+            if how["nprocs"] > 1:
+                row["train_cli"] = cli_row
             out[name] = row
             fmt = lambda xs: "/".join(f"{x:.0f}" for x in xs)  # noqa: E731
             agree = ", ".join(f"{c} {a['identical']}/{a['of']} reports and "
@@ -3821,6 +4063,8 @@ def phase_mesh(np, torch, dev, result, cfg=None, train_cfg=None, raw_shape=RAW_S
                 worst = sorted(refs[0]["grad_rel"].items(), key=lambda kv: -kv[1])[:6]
                 log(f"  {name} small reference step: worst gradients against world 1 (rel L2, "
                     f"world 1's norm) {[(k, float('%.1e' % v), float('%.1e' % refs[0]['grad_norm'][k])) for k, v in worst]}")
+            if how["nprocs"] > 1:
+                log_mesh_cli(name, cli_row, b, result)
             for call, a in agreement.items():
                 for d in a["differing"]:
                     log(f"  {name} {call}: image {d['image']} differs from world 1: same "
@@ -4195,8 +4439,8 @@ def main() -> int:
                   "beam-4 serving requests, the full-width training runs, the train CLI "
                   "and the evaluation of its checkpoint, phase 20's evaluate, "
                   "generate_reports and serve CLIs and traced request, phase 21's "
-                  "data-parallel serving and training (every rank), and phase 22's "
-                  "rehearsal; rehearsal_*: B=8 x N=2000"},
+                  "data-parallel serving, training and train CLI (every rank), and phase "
+                  "22's rehearsal; rehearsal_*: B=8 x N=2000"},
         {"name": "roi_align", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/roi_align.cu",
          "replaces": "rgrg_tpu/ops/roi_align_pallas.py:63",
@@ -4214,8 +4458,8 @@ def main() -> int:
                   "beam-4 serving requests, the full-width training runs, the train CLI "
                   "and the evaluation of its checkpoint, phase 20's evaluate, "
                   "generate_reports and serve CLIs and traced request, phase 21's "
-                  "data-parallel serving and training (every rank), and phase 22's "
-                  "rehearsal"},
+                  "data-parallel serving, training and train CLI (every rank), and phase "
+                  "22's rehearsal"},
         {"name": "beam_attention", "route": "cuda",
          "source": "rgrg_tpu_torch/csrc/beam_attn.cu",
          "replaces": "rgrg_tpu/ops/beam_attn_pallas.py:81",

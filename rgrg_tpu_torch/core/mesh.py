@@ -12,6 +12,9 @@ started by `launch`, and the global math is rebuilt explicitly:
     clamps to the largest count that divides it.
   - `replicate_pytree` broadcasts every tensor of a params tree from
     rank 0; `shard_pytree_batch` keeps this rank's contiguous rows.
+    `host_mesh` gives the mesh's ranks a gloo group of their own for
+    host objects (the train CLI's rank-local loader agrees on unreadable
+    samples there).
   - `all_reduce` and `all_gather_rows` carry autograd (the gradient of a
     sum over ranks is all-reduced by sum; a gathered row's gradient
     returns to its rank). `all_gather_rows` is an all_reduce of a
@@ -288,6 +291,18 @@ def gather_objects(obj: Any, mesh: Mesh) -> List[Any]:
     out: List[Any] = [None] * mesh.size
     dist.all_gather_object(out, obj, group=mesh.group)
     return out
+
+
+def host_mesh(mesh: Mesh) -> Mesh:
+    """`mesh`'s ranks over a gloo group of their own, for host objects
+    (gather_objects) that must not queue behind, or interleave with, the
+    collectives of the mesh's own group; the mesh of a process alone is
+    returned as it is. Every rank of the process group must call it, as
+    make_mesh."""
+    if mesh.group is None:
+        return mesh
+    group = dist.new_group(list(range(mesh.size)), backend="gloo")
+    return dataclasses.replace(mesh, backend="gloo", group=group)
 
 
 def broadcast_object(obj: Any, mesh: Mesh) -> Any:

@@ -18,6 +18,10 @@ tokens for ~95% of data; longer ones are truncated). Unreadable samples
 are skipped like the reference's None-filtering collator. train=True
 augments each sample (transforms.train_transform) with draws from the
 dataset's numpy Generator, as the JAX package does.
+
+`RGRGDataset.rank_batches` is the data-parallel form of `batches` on the
+per-sample stream: each rank builds only its rows of every global batch,
+and the ranks agree on where unreadable samples fell.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import csv
 import dataclasses
 import logging
 from itertools import islice
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -134,6 +138,18 @@ def row_to_sample(row: Row, train: bool = False,
     return sample
 
 
+@dataclasses.dataclass
+class RankLoadStats:
+    """What `RGRGDataset.rank_batches` cost a rank: the samples it built
+    (readable or not; a build cancelled unstarted is not counted), the rows
+    it yielded, its agreement rounds (calls of `exchange`) and the
+    unreadable samples the ranks agreed on."""
+    built: int = 0
+    rows: int = 0
+    rounds: int = 0
+    unreadable: int = 0
+
+
 class RGRGDataset:
     """Indexable dataset over the rows of a split. train=True augments
     with draws from a numpy Generator seeded with `seed`."""
@@ -185,15 +201,20 @@ class RGRGDataset:
         samples = (self._parallel_samples(order, workers) if workers > 0
                    else (self[int(i)] for i in order))
         buf: List[Sample] = []
-        for s in samples:
-            if s is None:
-                continue
-            buf.append(s)
-            if len(buf) == batch_size:
+        try:
+            for s in samples:
+                if s is None:
+                    continue
+                buf.append(s)
+                if len(buf) == batch_size:
+                    yield self._collate(buf)
+                    buf = []
+            if buf and not drop_last:
                 yield self._collate(buf)
-                buf = []
-        if buf and not drop_last:
-            yield self._collate(buf)
+        finally:
+            # a consumer that stops early: the builds in flight end before
+            # close() returns, not whenever the collector frees the builder
+            samples.close()
 
     def _parallel_samples(self, order: np.ndarray, workers: int) -> Iterator[Optional[Sample]]:
         """Ordered sample construction with a bounded in-flight window
@@ -204,21 +225,135 @@ class RGRGDataset:
 
         epoch = self._epoch
         self._epoch += 1
-
-        def build(idx: int) -> Optional[Sample]:
-            rng = (np.random.default_rng(np.random.SeedSequence([self.seed, epoch, idx]))
-                   if self.train else None)
-            return row_to_sample(self.rows[idx], self.train, rng, self.tcfg)
-
         with ThreadPoolExecutor(workers) as ex:
             it = iter(order.tolist())
-            pending = deque(ex.submit(build, i) for i in islice(it, workers * 2))
+            pending = deque(ex.submit(self._seeded_sample, epoch, i)
+                            for i in islice(it, workers * 2))
             while pending:
                 s = pending.popleft().result()
                 nxt = next(it, None)
                 if nxt is not None:
-                    pending.append(ex.submit(build, nxt))
+                    pending.append(ex.submit(self._seeded_sample, epoch, nxt))
                 yield s
+
+    def _seeded_sample(self, epoch: int, idx: int) -> Optional[Sample]:
+        """Row `idx` in `epoch` of the per-sample stream: its augmentations
+        drawn from SeedSequence([seed, epoch, idx]), whoever builds it."""
+        rng = (np.random.default_rng(np.random.SeedSequence([self.seed, epoch, idx]))
+               if self.train else None)
+        return row_to_sample(self.rows[idx], self.train, rng, self.tcfg)
+
+    def rank_batches(self, batch_size: int, rank: int, world: int,
+                     exchange: Callable[[List[int]], Sequence[List[int]]],
+                     shuffle: bool = False, workers: int = 1, ahead: int = 1,
+                     stats: Optional[RankLoadStats] = None) -> Iterator[Dict[str, Any]]:
+        """Rank `rank` of `world`'s share of batches(batch_size, shuffle,
+        drop_last=True, workers > 0): of each global batch, rows [rank *
+        per, (rank + 1) * per) with per = batch_size // world (the rows
+        core.mesh.shard_pytree_batch keeps), bit for bit, built from the
+        same per-sample seeds; list leaves, which shard_pytree_batch
+        passes whole, hold the global batch's entries (read from the rows:
+        they need no image). One epoch, like batches; every rank of the
+        world must iterate it alike.
+
+        A rank builds the samples at its rows' positions in the epoch's
+        order, on `workers` threads, and those of the next `ahead`
+        batches while the caller works on the current one. `exchange` is
+        the ranks' agreement on unreadable samples: each rank calls it
+        with the positions it found unreadable and gets every rank's
+        list, in rank order (core.mesh.gather_objects on a host group).
+        Once a batch, every rank learns which of the batch's positions
+        could not be read; where one could not, the batch's rows move on
+        past it, each rank builds the samples that moved into its rows,
+        and the ranks agree again on the positions that are new to the
+        batch. Every rank ends the epoch after the same number of
+        batches. Calls `exchange` on the caller's thread: a producer
+        thread per rank (data/prefetch.py) would stop after a different
+        number of batches on each rank and leave the others waiting in
+        it."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not divide over "
+                             f"{world} ranks")
+        per = batch_size // world
+        mine = slice(rank * per, (rank + 1) * per)
+        stats = RankLoadStats() if stats is None else stats
+        order = np.arange(len(self))
+        if shuffle:
+            self.rng.shuffle(order)
+        order = order.tolist()
+        epoch = self._epoch
+        self._epoch += 1
+        known: set = set()        # positions whose readability every rank knows
+        unreadable: set = set()   # those of them that could not be read
+
+        def window(start: int) -> Optional[List[int]]:
+            """The positions of the global batch from `start`, those not
+            known unreadable taken as readable; None past the epoch."""
+            pos, p = [], start
+            while len(pos) < batch_size:
+                if p >= len(order):
+                    return None
+                if p not in unreadable:
+                    pos.append(p)
+                p += 1
+            return pos
+
+        futures: Dict[int, Any] = {}
+        with ThreadPoolExecutor(workers) as ex:
+            def build(positions: List[int]) -> None:
+                for p in positions:
+                    if p not in futures:
+                        futures[p] = ex.submit(self._seeded_sample, epoch, order[p])
+                        stats.built += 1
+
+            try:
+                start = 0
+                while True:
+                    pos = window(start)
+                    while pos is not None:
+                        build(pos[mine])
+                        new = [p for p in pos if p not in known]
+                        if not new:
+                            break
+                        failed = [p for p in pos[mine]
+                                  if p not in known and futures[p].result() is None]
+                        agreed = set().union(*exchange(failed))
+                        stats.rounds += 1
+                        known.update(new)
+                        unreadable |= agreed
+                        stats.unreadable += len(agreed)
+                        if not agreed:
+                            break
+                        pos = window(start)
+                    if pos is None:
+                        return
+                    samples = [futures.pop(p).result() for p in pos[mine]]
+                    if any(s is None for s in samples):
+                        raise RuntimeError(f"rank {rank}: a sample that another rank read "
+                                           f"could not be read here")
+                    start = pos[-1] + 1
+                    for p in [p for p in futures if p < start]:
+                        del futures[p]
+                    nxt = start
+                    for _ in range(ahead):
+                        w = window(nxt)
+                        if w is None:
+                            break
+                        build(w[mine])
+                        nxt = w[-1] + 1
+                    batch = self._collate(samples)
+                    if "reference_reports" in batch:
+                        batch["reference_reports"] = [self.rows[order[p]]["reference_report"]
+                                                      for p in pos]
+                    if "reference_phrases" in batch:
+                        batch["reference_phrases"] = [list(self.rows[order[p]]["bbox_phrases"])
+                                                      for p in pos]
+                    stats.rows += per
+                    yield batch
+            finally:   # a consumer that stops early: builds not yet started are dropped
+                stats.built -= sum(f.cancel() for f in futures.values())
 
     def _collate(self, samples: List[Sample]) -> Dict[str, Any]:
         batch: Dict[str, Any] = {

@@ -73,6 +73,18 @@ def top1_per_class(class_logits: torch.Tensor, valid: torch.Tensor,
             "top_scores": masked.max(dim=1).values}
 
 
+def budget_order(keep: torch.Tensor, budget: int) -> torch.Tensor:
+    """The proposals [B, budget] an inference_proposal_budget keeps: the
+    NMS survivors moved to the front in score order, first `budget` slots.
+    Slot 0 stays the top-ranked proposal even where NMS's small-box rule
+    dropped it, since an undetected region takes proposal 0's box (top_idx
+    0): a budget above every image's survivors (or at them, where the top
+    proposal survived) then gives the unbudgeted detections."""
+    rank = (~keep).to(torch.int32)
+    rank[:, 0] = 0
+    return torch.sort(rank, dim=1, stable=True).indices[:, :budget]
+
+
 class RegionDetector(nn.Module):
     """Backbone + RPN + RoI heads + the two binary-classifier heads.
     Parameters are f32; convs and dense layers compute in cfg.dtype."""
@@ -132,7 +144,12 @@ class RegionDetector(nn.Module):
     def roi_forward(self, feats: torch.Tensor, boxes: torch.Tensor):
         """RoIAlign + box head over [B, K, 4] boxes in chunks of
         cfg.roi.proposal_chunk, so the pooled [B, chunk, 8, 8, 2048] f32 map
-        never exists for all K at once.
+        never exists for all K at once. A short last chunk is padded with
+        empty boxes to the chunk's size, so every chunk's products have one
+        shape: the GEMM library picks its algorithm, and so its rounding, by
+        shape, and a proposal's outputs then do not depend on how many run
+        with it (under an inference_proposal_budget of at least one chunk,
+        the kept proposals get the unbudgeted logits bit for bit).
         Returns (class_logits [B,K,30], box_regression [B,K,120],
         box_features [B,K,2048] bin-averaged), all f32."""
         k = boxes.shape[1]
@@ -140,11 +157,15 @@ class RegionDetector(nn.Module):
         fc6_kernel = self.box_head.fc6.kernel.to(self.dtype)
         outs = []
         for start in range(0, k, chunk):
-            pooled = self._pool(feats, boxes[:, start:start + chunk])
+            part = boxes[:, start:start + chunk]
+            n = part.shape[1]
+            if n < chunk:
+                part = F.pad(part, (0, 0, 0, chunk - n))
+            pooled = self._pool(feats, part)
             box_vecs = self.box_head(pooled, self.dtype, fc6_kernel)
             cls, reg = self.box_predictor(box_vecs)
-            outs.append((cls.to(torch.float32), reg.to(torch.float32),
-                         pooled.mean(dim=(2, 3)).to(torch.float32)))
+            outs.append((cls[:, :n].to(torch.float32), reg[:, :n].to(torch.float32),
+                         pooled[:, :n].mean(dim=(2, 3)).to(torch.float32)))
         return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
 
     def region_features_from_boxes(self, feats: torch.Tensor,
@@ -210,9 +231,7 @@ class RegionDetector(nn.Module):
 
         budget = self.cfg.roi.inference_proposal_budget
         if budget is not None and budget < boxes.shape[1]:
-            # survivors to the front, score order kept, first `budget` slots
-            order = torch.sort((~keep).to(torch.int32), dim=1,
-                               stable=True).indices[:, :budget]
+            order = budget_order(keep, budget)
             boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
             keep = torch.gather(keep, 1, order)
 

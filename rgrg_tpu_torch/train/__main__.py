@@ -22,18 +22,27 @@ the card unless `--device cpu` is given.
 Data parallel: cfg.mesh.num_devices ranks (None, the default: every
 visible card; one process on the CPU), one per card (core/mesh.launch;
 NCCL, or gloo with `--device cpu`; CUDA_VISIBLE_DEVICES narrows the
-cards). Each rank builds
-the same global batches from the same loader and seed and keeps its rows;
-train.loop.train computes the global batch's loss and gradient, and rank
-0 writes metrics and checkpoints. The kernels are built once before the
-ranks start.
+cards). Each rank works out the mesh, clamped to divide the global batch,
+before it loads anything (a rank outside it returns). With `--workers N`
+> 0 each rank builds only its rows of every global batch
+(RGRGDataset.rank_batches; the ranks agree on unreadable images over a
+gloo group of their own, core/mesh.host_mesh), the rows the replicated
+loader would give it; `--prefetch` batches of its rows are built ahead.
+With `--workers 0` every rank builds the whole global batch on the shared
+Generator's stream (the JAX package's workers=0 batches, which cannot be
+split) and keeps its rows. train.loop.train computes the global batch's
+loss and gradient, and rank 0 validates and writes metrics and
+checkpoints. The kernels are built once before the ranks start.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import logging
 from typing import Any, Dict, Optional
+
+log = logging.getLogger("rgrg_tpu_torch.train")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--init-from-torch", default=None,
                     help="warm-start from a reference .pt (stage-1 detector or full model)")
     ap.add_argument("--workers", type=int, default=0,
-                    help="sample-construction threads (DataLoader num_workers analogue)")
+                    help="sample-construction threads (DataLoader num_workers analogue); "
+                         "over several ranks, > 0 builds only each rank's rows")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches prefetched ahead of the device step (0 = synchronous)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -132,11 +142,28 @@ def main(argv=None, cfg=None):
 
 
 def _train_rank(rank: int, args, cfg) -> None:
-    from rgrg_tpu_torch.core import mesh
-    _train(args, cfg, mesh.rank_device())
+    """One rank of the data-parallel CLI: the mesh, clamped to the global
+    batch as train.loop.train would clamp it, and with `--workers` > 0 the
+    loader's gloo group, both built before any loading or thread (every
+    rank builds them); a rank outside the mesh returns."""
+    from rgrg_tpu_torch.core import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(cfg.mesh.num_devices,
+                              batch_size=args.batch_size or cfg.train.batch_size)
+    host = mesh_lib.host_mesh(mesh) if args.workers > 0 else None
+    if not mesh.member:
+        log.info("rank %d is outside the %d-rank mesh", rank, mesh.size)
+        return None
+    if host is None:
+        log.warning("--workers 0 over %d ranks: every rank builds the whole global batch "
+                    "(the shared Generator's stream cannot be split); --workers N > 0 "
+                    "builds only each rank's rows", mesh.size)
+    _train(args, cfg, mesh_lib.rank_device(), mesh, host)
 
 
-def _train(args, cfg, device):
+def _train(args, cfg, device, mesh=None, host=None):
+    """Train on `device`; over a mesh, this rank's part, its loader
+    rank-local when `host` (the loader's gloo group) is given."""
+    from rgrg_tpu_torch.core import mesh as mesh_lib
     from rgrg_tpu_torch.data.dataset import RGRGDataset, read_split_csv
     from rgrg_tpu_torch.data.prefetch import prefetched
     from rgrg_tpu_torch.models.full_model import RGRG
@@ -154,8 +181,13 @@ def _train(args, cfg, device):
                            seq_len=args.seq_len)
 
     def train_batches():
+        if host is not None:
+            return train_ds.rank_batches(
+                batch_size, mesh.rank, mesh.size, lambda failed: mesh_lib.gather_objects(
+                    failed, host), shuffle=True, workers=args.workers, ahead=args.prefetch)
         it = train_ds.batches(batch_size, shuffle=True, workers=args.workers)
-        return prefetched(it, depth=args.prefetch) if args.prefetch > 0 else it
+        it = prefetched(it, depth=args.prefetch) if args.prefetch > 0 else it
+        return it if mesh is None else (mesh_lib.shard_pytree_batch(b, mesh) for b in it)
 
     val_fn = None
     if args.val_csv:
@@ -165,7 +197,7 @@ def _train(args, cfg, device):
     return train(model, cfg, train_batches, args.run_dir, stage=args.stage,
                  num_epochs=args.epochs, val_fn=val_fn, lm_budget=args.lm_budget,
                  resume_from=args.resume_from, max_steps=args.max_steps,
-                 init_params=init_params, device=device)
+                 init_params=init_params, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -11,10 +11,12 @@ or data-parallel over the ranks of a process group (core/mesh.py).
     from the device's default generator, seeded with seed + 2;
   - data parallelism as in the JAX package: the mesh is built at the first
     batch from cfg.mesh.num_devices (None: every rank of the process
-    group), clamped to divide the batch; the state is replicated from rank
-    0, every rank takes the same global batches and keeps its rows, and
-    the train step computes the global batch's loss and gradient
-    (train/trainer.py). Rank 0 alone writes metrics and checkpoints, and
+    group), clamped to divide the batch, and every rank takes the same
+    global batches and keeps its rows; or a caller that built the mesh
+    before loading (`mesh`, as the train CLI does) hands each rank its
+    own rows. The state is replicated from rank 0, and the train step
+    computes the global batch's loss and gradient (train/trainer.py).
+    Rank 0 alone writes metrics and checkpoints, and
     runs the validation, whose result it broadcasts, so the plateau scale,
     the best checkpoint, early stop and max_steps are decided alike on
     every rank.
@@ -122,14 +124,22 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
           evaluate_every: Optional[int] = None, lm_budget: int = 128,
           resume_from: Optional[str] = None, checkpoint_every: Optional[int] = None,
           max_steps: Optional[int] = None, init_params: Optional[Any] = None,
-          device: DeviceLike = None) -> trainer.TrainState:
+          device: DeviceLike = None,
+          mesh: Optional[mesh_lib.Mesh] = None) -> trainer.TrainState:
     """train_batches: a factory of a fresh batch iterator per epoch (dicts
     of numpy arrays or tensors). val_fn(state) -> a validation loss, or a
     dict of them whose "total" drives the plateau scheduler and the best
     checkpoint, called every `evaluate_every` mini-steps. init_params:
     warm-start weights (`warm_start_params`). Runs on the card unless
     device="cpu". In a process group (core.mesh.launch) every rank calls
-    it alike; a rank that the batch leaves outside the mesh returns None."""
+    it alike; a rank that the batch leaves outside the mesh returns None.
+    `mesh`: the mesh the caller built (core.mesh.make_mesh, clamped to the
+    global batch size) before loading; the batches are then this rank's
+    rows of each global batch, which are not cut again. A rank outside
+    that mesh must not call train."""
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is outside the {mesh.size}-rank mesh")
+    local_rows = mesh is not None
     tcfg = cfg.train
     main = mesh_lib.process_rank() == 0
     writer = MetricWriter(run_dir) if main else None
@@ -145,8 +155,9 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
         state = load_checkpoint(resume_from, target=state)
         log.info("resumed from %s at step %d", resume_from, state.step)
 
-    # built at the first batch, so that its size can be clamped to the batch
-    mesh = step_fn = None
+    # the step (and the mesh, unless given) is built at the first batch, so
+    # that the mesh can be clamped to the batch
+    step_fn = None
     plateau = PlateauScheduler(factor=tcfg.lr_factor, patience=tcfg.lr_patience,
                                threshold=tcfg.lr_threshold, cooldown=tcfg.lr_cooldown)
     evaluate_every = evaluate_every or tcfg.evaluate_every_k_batches
@@ -165,16 +176,18 @@ def train(model: RGRG, cfg: RGRGConfig, train_batches: Callable[[], Iterable],
     for epoch in range(num_epochs):
         t_epoch = time.time()
         for batch in train_batches():
-            if mesh is None:
-                mesh = mesh_lib.make_mesh(cfg.mesh.num_devices,
-                                          batch_size=int(batch["images"].shape[0]))
-                if not mesh.member:
-                    log.info("rank %d is outside the %d-rank mesh", mesh.rank, mesh.size)
-                    return None
+            if step_fn is None:
+                if mesh is None:
+                    mesh = mesh_lib.make_mesh(cfg.mesh.num_devices,
+                                              batch_size=int(batch["images"].shape[0]))
+                    if not mesh.member:
+                        log.info("rank %d is outside the %d-rank mesh", mesh.rank, mesh.size)
+                        return None
                 replicate_state(state, mesh)
                 step_fn = trainer.make_train_step(model, tcfg, stage=stage,
                                                   lm_budget=lm_budget, mesh=mesh)
-            state, losses = step_fn(state, mesh_lib.shard_pytree_batch(batch, mesh), rng)
+            rows = batch if local_rows else mesh_lib.shard_pytree_batch(batch, mesh)
+            state, losses = step_fn(state, rows, rng)
             step = state.step
             if main and step % 50 == 0:
                 writer.write_scalars(step, {f"train/{k}": float(v)

@@ -164,6 +164,27 @@ def _assert_detect_equal(got, want):
             _close(got[k], want[k], k)
 
 
+def test_roi_forward_runs_every_chunk_at_one_shape(setup, monkeypatch):
+    """A short last chunk is padded to the chunk's size, so a proposal's
+    outputs do not depend on how many proposals run with it (the GEMM
+    library picks its algorithm by shape); the outputs stay those of one
+    unchunked pass."""
+    det = setup["tp"]["detector"]
+    feats = torch.from_numpy(setup["jfeats"])
+    with torch.no_grad():
+        boxes, _ = det.rpn_proposals(feats)
+        whole = det.roi_forward(feats, boxes)
+        pool, shapes = det._pool, []
+        monkeypatch.setattr(det, "_pool", lambda f, b: shapes.append(tuple(b.shape)) or pool(f, b))
+        monkeypatch.setattr(det, "cfg", dataclasses.replace(
+            det.cfg, roi=dataclasses.replace(det.cfg.roi, proposal_chunk=12)))
+        chunked = det.roi_forward(feats, boxes)
+    assert boxes.shape[1] == 32 and shapes == [(2, 12, 4)] * 3
+    for got, want in zip(chunked, whole):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("variant", ["full", "image_chunk", "proposal_budget"])
 def test_detect_matches_jax(setup, variant):
     if variant == "proposal_budget":

@@ -23,7 +23,11 @@ torch_mesh_ranks.py, which imports no JAX):
     (asserted);
   - the backbone's gradient in f64, the draws and the LM's dropout masks;
   - train.loop.train with a resume from `last`;
-  - the serve CLI's ranks (`--data-parallel 2`).
+  - the serve CLI's ranks (`--data-parallel 2`);
+  - the train CLI's ranks (`_train_rank`) on a split with an unreadable
+    image: with `--workers 2` each rank loads only its rows, agreeing on
+    the skip over its gloo group, for two mini-steps; with `--workers 0`
+    (world 2 only) every rank builds the global batch and keeps its rows.
 World 1 runs in this process while world 2's ranks run: the ranks return
 digests, and rank 0 its tensors, which the tests compare with world 1's.
 """
@@ -64,6 +68,7 @@ from rgrg_tpu_torch.train import trainer
 
 from tests import torch_mesh_ranks as ranks
 from tests.test_torch_pipeline import SHAPE
+from tests.test_torch_rank_loading import write_split, write_tokenizer
 from tests.test_torch_train_model import (TOL, configs as train_configs, make_batch,
                                           n_anchors, pool_size)
 from tests.test_torch_train_ops import jax_draws
@@ -77,6 +82,18 @@ MIN_GAP = 1e-4
 TRAIN_SEED = 14                  # the global batch of 4; margins asserted
 LM_BUDGET = 8                    # below the batch's 14 LM-valid rows
 CPU = torch.device("cpu")
+CLI_SEQ = 10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads (the ranks one each, world 1 the rest): the
+    suite runs several test processes on one host's cores, where more
+    threads a process only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -128,12 +145,21 @@ def _lm_inputs():
             "seq_valid": rng.uniform(size=(b, 29)) < 0.5}
 
 
-def _world_tasks(serving, training, run_dir, dec_cfg, cli_argv):
+def _train_cli_argv(train_cli, run_dir, workers, steps):
+    return ["--stage", "3", "--train-csv", train_cli["csv"], "--tokenizer-dir", train_cli["tok"],
+            "--run-dir", os.path.join(run_dir, f"train_cli_w{workers}"), "--batch-size", "2",
+            "--seq-len", str(CLI_SEQ), "--lm-budget", str(LM_BUDGET), "--max-steps", str(steps),
+            "--workers", str(workers), "--prefetch", "1", "--device", "cpu"]
+
+
+def _world_tasks(serving, training, run_dir, dec_cfg, cli_argv, train_cli, world):
     """The rank tasks, in an order in which none sees another's changes:
     serving reads the detector that train_step then trains in place (the
     tasks share it, so it is pickled once), the backbone and dropout
     checks copy what they change; the serve CLI loads its own checkpoint
-    and writes <run_dir>/serve.txt."""
+    and writes <run_dir>/serve.txt; the train CLI trains its own init
+    under <run_dir>/train_cli_w<workers> (with --workers 0 at world 2
+    only)."""
     t = training
     lcfg = TC.RGRGConfig(model=t["tcfg"], train=TC.TrainConfig(grad_accumulation_steps=1))
     rng = np.random.default_rng(2)   # the f64 backbone check at 128x128
@@ -153,7 +179,9 @@ def _world_tasks(serving, training, run_dir, dec_cfg, cli_argv):
         ("serve_cli", ranks.serve_cli, (cli_argv + ["--output", os.path.join(run_dir,
                                                                              "serve.txt")],
                                         serving["tcfg"])),
-    ]
+        ("train_cli", ranks.train_cli, (_train_cli_argv(train_cli, run_dir, 2, 2), lcfg)),
+    ] + ([("train_cli_w0", ranks.train_cli, (_train_cli_argv(train_cli, run_dir, 0, 1), lcfg))]
+         if world > 1 else [])
 
 
 def _serve_cli_inputs(serving, root):
@@ -191,6 +219,9 @@ def _run_worlds(serving, training, root, dec_cfg):
     for d in dirs.values():
         os.makedirs(d)
     cli = _serve_cli_inputs(serving, str(root / "cli"))
+    os.makedirs(root / "train_cli")
+    csv_path, _ = write_split(root / "train_cli", rows=6, unreadable=(0,))
+    train_cli = dict(csv=csv_path, tok=write_tokenizer(root / "train_cli" / "tok"))
     # neither world reads the other's results, so world 1 runs here while
     # world 2's ranks run (the longer part: its ranks get 3/8 of the
     # threads each, world 1 the rest)
@@ -201,11 +232,11 @@ def _run_worlds(serving, training, root, dec_cfg):
         with cf.ThreadPoolExecutor(1) as pool:
             two = pool.submit(mesh.launch, ranks.tasks, 2,
                               args=(_world_tasks(serving, training, dirs[2], dec_cfg.decoder,
-                                                 cli + ["--data-parallel", "2"]),),
+                                                 cli + ["--data-parallel", "2"], train_cli, 2),),
                               device="cpu", timeout_s=600, threads=rank_threads)
             one = ranks.tasks(0, copy.deepcopy(_world_tasks(serving, training, dirs[1],
-                                                            dec_cfg.decoder, cli)))
-            return {1: one, 2: two.result(), "dirs": dirs}
+                                                            dec_cfg.decoder, cli, train_cli, 1)))
+            return {1: one, 2: two.result(), "dirs": dirs, "train_cli": train_cli}
     finally:
         torch.set_num_threads(threads)
 
@@ -466,3 +497,45 @@ def test_train_loop_world2_matches_world1_and_resumes(worlds):
         assert strip[0] == strip[1] and len(strip[1]) == 1
         assert os.path.isfile(os.path.join(worlds["dirs"][2], name, "last",
                                            "train_state.pt"))
+
+
+def _cli_dataset(train_cli):
+    from rgrg_tpu_torch.data.dataset import RGRGDataset, read_split_csv
+    return RGRGDataset(read_split_csv(train_cli["csv"]),
+                       GPT2Tokenizer.from_dir(train_cli["tok"]), train=True, seq_len=CLI_SEQ)
+
+
+def test_train_cli_ranks_load_their_rows_and_match_world1(worlds):
+    """The train CLI's ranks with `--workers 2` (two gloo ranks, batch 2,
+    two mini-steps; the split's unreadable image lies in rank 0's rows of
+    the first batch): each rank's batches are the rows of
+    tests/test_torch_rank_loading.py's in-process ranks on the same split,
+    and the shards of world 1's (the replicated loader's) batches; the
+    trained parameters equal world 1's within 2 x lr a step and are
+    bitwise equal across the ranks; rank 0 wrote `last`."""
+    lr = TC.TrainConfig().learning_rate
+    one, two = worlds[1]["train_cli"], [out["train_cli"] for out in worlds[2]]
+    local = ranks.rank_local_epochs(lambda: _cli_dataset(worlds["train_cli"]), 2, 2, epochs=1)
+    assert [len(epochs[0][0]) for epochs in local] == [2, 2]
+    assert local[0][0][1].unreadable == 1 and local[0][0][1].built > local[0][0][1].rows
+    for r, out in enumerate(two):
+        assert out["batches"] == [ranks.batch_digest(b) for b in local[r][0][0]]
+    replicated = list(_cli_dataset(worlds["train_cli"]).batches(2, shuffle=True, workers=2))
+    assert one["batches"] == [ranks.batch_digest(b) for b in replicated]
+    assert [ranks.batch_digest(mesh.shard_pytree_batch(b, mesh.Mesh(2, 0)))
+            for b in replicated] == two[0]["batches"]
+    assert one["step"] == two[0]["step"] == two[1]["step"] == 2
+    assert two[0]["digest"] == two[1]["digest"]
+    assert max(_param_diff(two[0]["params"], one["params"])) <= 2 * lr * 2 + 1e-6
+    assert os.path.isfile(os.path.join(worlds["dirs"][2], "train_cli_w2", "last",
+                                       "train_state.pt"))
+
+
+def test_train_cli_ranks_with_workers_0_keep_the_replicated_batches(worlds):
+    """`--workers 0` at world 2: each rank's batch is its rows of the
+    shared Generator's global batch (the JAX package's workers=0 stream)."""
+    want = next(_cli_dataset(worlds["train_cli"]).batches(2, shuffle=True, workers=0))
+    for r, out in enumerate(worlds[2]):
+        assert out["train_cli_w0"]["batches"] == [
+            ranks.batch_digest(mesh.shard_pytree_batch(want, mesh.Mesh(2, r)))]
+        assert out["train_cli_w0"]["step"] == 1

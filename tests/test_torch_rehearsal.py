@@ -43,6 +43,7 @@ from rgrg_tpu.text.tokenizer import GPT2Tokenizer as JTokenizer
 
 from rgrg_tpu_torch.core import config as TC
 from rgrg_tpu_torch.core.convert import from_jax_params
+from rgrg_tpu_torch.models.detector import RegionDetector
 from rgrg_tpu_torch.models.full_model import RGRG, ladder_budget
 from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
 from rgrg_tpu_torch.tools import three_stage_rehearsal as rehearsal
@@ -235,6 +236,29 @@ def test_budget_at_or_above_the_survivors_is_exact(budget_case):
             budgeted.detect(params, image)
         m, p = vpb.model_with(model, params, budget)
         assert m.cfg == budgeted.cfg and p["decoder"] is params["decoder"]
+        out = vpb.detect_with(model, params, budget, image)
+        for k, v in ref.items():
+            assert torch.equal(out[k], v), (budget, k)
+
+
+def test_budget_keeps_the_top_proposal_where_nms_dropped_it(budget_case, monkeypatch):
+    """Where NMS's small-box rule drops the top-ranked proposal, the
+    undetected regions still take its box (top_idx 0): a budget above the
+    survivors keeps it in slot 0 and gives the unbudgeted detections."""
+    model, params = budget_case["model"], budget_case["params"]
+    rpn_proposals = RegionDetector.rpn_proposals
+
+    def top_dropped(self, feats):
+        boxes, keep = rpn_proposals(self, feats)
+        return boxes, keep.index_fill(1, torch.tensor([0]), False)
+
+    monkeypatch.setattr(RegionDetector, "rpn_proposals", top_dropped)
+    image = torch.from_numpy(vpb.synth_batch(np.random.default_rng(EVAL_SEED), 1)["images"])
+    n = int(vpb.survivors(params["detector"], image).max())
+    assert n + 3 < CAPACITY
+    ref = model.detect(params, image)
+    assert not ref["class_detected"].all(), "a region takes proposal 0's box"
+    for budget in (n + 1, n + 3):
         out = vpb.detect_with(model, params, budget, image)
         for k, v in ref.items():
             assert torch.equal(out[k], v), (budget, k)

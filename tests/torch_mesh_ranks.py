@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +35,93 @@ def digest(arrays: Sequence[np.ndarray]) -> str:
     for a in arrays:
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def batch_digest(batch: Dict[str, Any]) -> str:
+    """One hash of a batch dict: every leaf's name, and an array's dtype,
+    shape and bytes or another leaf's repr (the list leaves)."""
+    h = hashlib.blake2b()
+    for k in sorted(batch):
+        v = batch[k]
+        h.update(k.encode())
+        if isinstance(v, np.ndarray):
+            h.update(f"{v.dtype}{v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def rank_local_epochs(make_dataset: Callable[[], Any], batch_size: int, world: int,
+                      epochs: int = 2, workers: int = 2, ahead: int = 1) -> List[List[Any]]:
+    """Every rank of `world` in this process, a thread each with its own
+    dataset (make_dataset()), iterating RGRGDataset.rank_batches (shuffled)
+    for `epochs` epochs; the agreement on unreadable samples is an
+    exchange among the threads. Per rank, per epoch: (batches,
+    RankLoadStats)."""
+    from rgrg_tpu_torch.data.dataset import RankLoadStats
+    slots: List[Any] = [None] * world
+    barrier = threading.Barrier(world, timeout=120)
+
+    def run(rank: int):
+        def exchange(failed: List[int]) -> List[List[int]]:
+            slots[rank] = list(failed)
+            barrier.wait()
+            out = list(slots)
+            barrier.wait()   # every rank has read the slots before they change
+            return out
+
+        ds = make_dataset()
+        out = []
+        try:
+            for _ in range(epochs):
+                stats = RankLoadStats()
+                out.append((list(ds.rank_batches(batch_size, rank, world, exchange,
+                                                 shuffle=True, workers=workers, ahead=ahead,
+                                                 stats=stats)), stats))
+        except BaseException:
+            barrier.abort()   # the other ranks stop waiting for this one
+            raise
+        return out
+
+    with ThreadPoolExecutor(world) as ex:
+        futures = [ex.submit(run, r) for r in range(world)]
+        return [f.result() for f in futures]
+
+
+def train_cli(rank: int, argv: List[str], cfg) -> Dict[str, Any]:
+    """The train CLI on `argv`: in a process group of more than one rank,
+    rank `rank` of its rank path (`_train_rank`), else `main` in this
+    process. The digest of each batch the train step took (this rank's
+    rows), and the final state's digest and (rank 0) tensors."""
+    import rgrg_tpu_torch.train.__main__ as cli
+    from rgrg_tpu_torch.train import trainer
+
+    batches: List[str] = []
+    states: List[Any] = []
+    make_step, train = trainer.make_train_step, cli._train
+
+    def recording(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, rng):
+            batches.append(batch_digest(batch))
+            return step(state, batch, rng)
+        return run
+
+    def kept(*a, **kw):
+        states.append(train(*a, **kw))
+        return states[-1]
+
+    trainer.make_train_step, cli._train = recording, kept
+    try:
+        if mesh_lib.visible_devices() > 1:
+            cli._train_rank(rank, cli.build_parser().parse_args(argv), cfg)
+        else:
+            cli.main(argv, cfg=cfg)
+    finally:
+        trainer.make_train_step, cli._train = make_step, train
+    return dict(batches=batches, step=states[0].step, **_trained(rank, states[0]))
 
 
 def _trained(rank: int, state, grads: Optional[List[np.ndarray]] = None):

@@ -23,7 +23,7 @@ import torch
 from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.decode import beam
 from rgrg_tpu_torch.models import gpt2
-from rgrg_tpu_torch.models.detector import RegionDetector, top1_per_class
+from rgrg_tpu_torch.models.detector import RegionDetector, budget_order, top1_per_class
 from rgrg_tpu_torch.ops.boxes import box_iou
 from rgrg_tpu_torch.ops.nms import pairwise_iou
 from rgrg_tpu_torch.ops.topk import stable_topk
@@ -54,7 +54,7 @@ def decision_margins(det: RegionDetector, images: torch.Tensor,
     if budget is not None and budget < boxes.shape[1]:
         # the RoI head's proposals under a budget, as RegionDetector.forward
         # compacts them
-        order = torch.sort((~keep).to(torch.int32), dim=1, stable=True).indices[:, :budget]
+        order = budget_order(keep, budget)
         boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
         keep = torch.gather(keep, 1, order)
     cls, _, _ = det.roi_forward(feats, boxes)
