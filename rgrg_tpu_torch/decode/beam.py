@@ -32,6 +32,7 @@ import torch
 from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.ops.topk import stable_topk
+from rgrg_tpu_torch.utils.logging import span
 
 NEG_INF = -1.0e9
 
@@ -188,13 +189,16 @@ def beam_generate(params: Dict[str, Any], image_features: Optional[torch.Tensor]
     image_features=None with `batch` B and no_image=True runs vanilla GPT-2
     (gpt2.prefill without features; the steps leave slot 0 out).
 
-    Each decode step adds one to `beam_generate.steps`."""
+    Each call adds B to `beam_generate.rows`, each decode step one to
+    `beam_generate.steps` (a `decode.step` span while spans are recorded,
+    its stop test's host read a `decode.read`)."""
     k = num_beams
     if image_features is not None:
         b = image_features.shape[0]
         feats = image_features.repeat_interleave(k, dim=0)            # [B*K, F]
     else:
         b, feats = batch, None
+    beam_generate.rows += b
     logits0, cache = gpt2.prefill(params, feats, cfg.bos_token_id, max_length,
                                   cfg, cache_dtype=cache_dtype,
                                   batch=None if feats is not None else b * k)
@@ -214,16 +218,22 @@ def beam_generate(params: Dict[str, Any], image_features: Optional[torch.Tensor]
 
     t = 0
     # the reference stops once cur_len = t + 2 reaches max_length
-    while t + 2 < max_length and not bool(state["done"].all()):
-        logits, cache = gpt2.decode_step_beam(params, tok, t, cache, anc, cfg,
-                                              no_image=no_image)
-        new_beam, tok, state = process(logits, state, t + 2, *lp_args)
-        anc = reorder_ancestry(anc, new_beam, t + 3)
-        t += 1
-        beam_generate.steps += 1
+    with span("decode.read"):
+        go = t + 2 < max_length and not bool(state["done"].all())
+    while go:
+        with span("decode.step"):
+            logits, cache = gpt2.decode_step_beam(params, tok, t, cache, anc, cfg,
+                                                  no_image=no_image)
+            new_beam, tok, state = process(logits, state, t + 2, *lp_args)
+            anc = reorder_ancestry(anc, new_beam, t + 3)
+            t += 1
+            beam_generate.steps += 1
+            with span("decode.read"):   # the stop test waits for the step
+                go = t + 2 < max_length and not bool(state["done"].all())
 
     ids = finalize(state, t + 2, cfg, length_penalty, active)
     return (ids, state["done"]) if return_done else ids
 
 
 beam_generate.steps = 0
+beam_generate.rows = 0

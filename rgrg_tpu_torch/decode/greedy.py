@@ -15,6 +15,7 @@ import torch
 
 from rgrg_tpu_torch.core.config import DecoderConfig
 from rgrg_tpu_torch.models import gpt2
+from rgrg_tpu_torch.utils.logging import span
 
 
 def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
@@ -29,10 +30,13 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
     cache_dtype: None follows the parameter dtype; torch.int8 selects the
     quantized cache.
 
-    Each call adds one to `greedy_generate.prefills` and each decode step
-    one to `greedy_generate.steps`."""
+    Each call adds one to `greedy_generate.prefills` and B to
+    `greedy_generate.rows`, each decode step one to `greedy_generate.steps`
+    (a `decode.step` span while spans are recorded, its stop test's host
+    read a `decode.read`)."""
     greedy_generate.prefills += 1
     b = image_features.shape[0]
+    greedy_generate.rows += b
     logits0, cache = gpt2.prefill(params, image_features, cfg.bos_token_id,
                                   max_length, cfg, cache_dtype=cache_dtype)
     out = torch.full((b, max_length), cfg.pad_token_id, dtype=torch.long,
@@ -49,16 +53,22 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
         unfinished = unfinished & active
 
     t = 0
-    while t < max_length - 2 and bool(unfinished.any()):
-        logits, cache = gpt2.decode_step(params, token, t, cache, cfg)
-        token = torch.where(unfinished, torch.argmax(logits, dim=-1),
-                            cfg.pad_token_id)
-        out[:, t + 2] = token
-        unfinished = unfinished & (token != cfg.eos_token_id)
-        t += 1
-        greedy_generate.steps += 1
+    with span("decode.read"):
+        go = t < max_length - 2 and bool(unfinished.any())
+    while go:
+        with span("decode.step"):
+            logits, cache = gpt2.decode_step(params, token, t, cache, cfg)
+            token = torch.where(unfinished, torch.argmax(logits, dim=-1),
+                                cfg.pad_token_id)
+            out[:, t + 2] = token
+            unfinished = unfinished & (token != cfg.eos_token_id)
+            t += 1
+            greedy_generate.steps += 1
+            with span("decode.read"):   # the stop test waits for the step
+                go = t < max_length - 2 and bool(unfinished.any())
     return out
 
 
 greedy_generate.prefills = 0
 greedy_generate.steps = 0
+greedy_generate.rows = 0

@@ -38,6 +38,7 @@ from rgrg_tpu_torch.models.full_model import RGRG, Params
 from rgrg_tpu_torch.ops.resize import resize_matrices
 from rgrg_tpu_torch.text.report import SimilarityFn, assemble_report
 from rgrg_tpu_torch.text.tokenizer import GPT2Tokenizer
+from rgrg_tpu_torch.utils.logging import span
 
 ImageLike = Union[str, np.ndarray]
 
@@ -110,7 +111,8 @@ class ReportGenerator:
         batch = torch.from_numpy(preprocess_batch(arrays))
         if transfer_dtype is not None:
             batch = batch.to(transfer_dtype)
-        return batch.to(self.device)
+        with span("pre.upload"):
+            return batch.to(self.device)
 
     def _resize_mats(self, shape: Tuple[int, int]):
         """Per-input-shape (wy, wx) resize matrices, built once on the host
@@ -132,7 +134,9 @@ class ReportGenerator:
         shape = arrays[0].shape
         if any(a.ndim != 2 or a.dtype != np.uint8 or a.shape != shape for a in arrays):
             return None, arrays
-        raw = torch.from_numpy(np.stack(arrays)).to(self.device)
+        raw = torch.from_numpy(np.stack(arrays))
+        with span("pre.upload"):
+            raw = raw.to(self.device)
         return (raw, self._resize_mats(shape)), None
 
     def _decode_args(self, num_beams: Optional[int], max_length: Optional[int]):

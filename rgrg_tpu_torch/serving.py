@@ -47,6 +47,7 @@ from rgrg_tpu_torch.core import mesh as mesh_lib
 from rgrg_tpu_torch.inference import GeneratedReport, ReportGenerator
 from rgrg_tpu_torch.models import gpt2
 from rgrg_tpu_torch.text.report import assemble_report
+from rgrg_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass
@@ -124,28 +125,31 @@ def _to_host(tree):
     return tree.cpu().numpy()
 
 
-def _postprocess(gen: ReportGenerator, device_out, n_images: int) -> List[GeneratedReport]:
+def _postprocess(gen: ReportGenerator, device_out, n_images: int,
+                 batch_id: Optional[int] = None) -> List[GeneratedReport]:
     """One batch's outputs -> reports (runs on the post thread: its copies
     wait for the batch's device work there, not on the main thread)."""
-    out = _to_host(device_out)
-    ids = out["output_ids"]
-    results = []
-    for b in range(n_images):
-        sel = out["decoded_mask"][b]
-        region_sents = {}
-        ordered = []
-        for r in range(C.NUM_REGIONS):
-            if sel[r]:
-                text = gen.tokenizer.decode(ids[b, r], skip_special_tokens=True)
-                region_sents[C.REGION_NAMES[r]] = text
-                ordered.append(text)
-        results.append(GeneratedReport(
-            report=assemble_report(ordered, gen.similarity_fn, gen.threshold),
-            region_sentences=region_sents,
-            selected_regions=out["selected_regions"][b],
-            class_detected=out["class_detected"][b],
-            top_region_boxes=out["detections"]["top_region_boxes"][b]))
-    return results
+    with span("serve.postprocess", batch_id):
+        with span("post.copy"):
+            out = _to_host(device_out)
+        ids = out["output_ids"]
+        results = []
+        for b in range(n_images):
+            sel = out["decoded_mask"][b]
+            region_sents = {}
+            ordered = []
+            for r in range(C.NUM_REGIONS):
+                if sel[r]:
+                    text = gen.tokenizer.decode(ids[b, r], skip_special_tokens=True)
+                    region_sents[C.REGION_NAMES[r]] = text
+                    ordered.append(text)
+            results.append(GeneratedReport(
+                report=assemble_report(ordered, gen.similarity_fn, gen.threshold),
+                region_sentences=region_sents,
+                selected_regions=out["selected_regions"][b],
+                class_detected=out["class_detected"][b],
+                top_region_boxes=out["detections"]["top_region_boxes"][b]))
+        return results
 
 
 def _kv_dtype(kv_cache_dtype) -> Optional[torch.dtype]:
@@ -213,7 +217,18 @@ def generate_reports_pipelined(gen: ReportGenerator,
     dequantised weights), "pallas" the layout kernel K4 reads directly.
     cascade_stats: an optional CascadeStats to read the cascade telemetry
     afterwards or to set the bail-out policy; one is made internally when
-    the cascade is active."""
+    the cascade is active.
+
+    Each batch adds the regions it selected to
+    `generate_reports_pipelined.rows_selected`. While spans are recorded
+    (utils/logging), batch i's are tagged i on all three threads: on the
+    main thread `serve.batch` (the loop's iteration) holds
+    `serve.pre_wait`, `serve.detect` (the detector's dispatch, or the fused
+    detect-and-decode), `serve.select_read` (the selection read, or a
+    speculative batch's validation read and any re-decode), and, before
+    each yield, `serve.post_wait`, then `serve.yielded` (the caller's
+    time); the pre thread's `serve.preprocess` holds `pre.upload`, the
+    post thread's `serve.postprocess` holds `post.copy`."""
     kv = _kv_dtype(kv_cache_dtype)
     batches = [images[i:i + batch_size] for i in range(0, len(images), batch_size)]
     if not batches:
@@ -253,16 +268,17 @@ def generate_reports_pipelined(gen: ReportGenerator,
     # with a bf16 detector the first conv casts to bf16 anyway: upload bf16
     upload_dtype = torch.bfloat16 if model.cfg.detector.dtype == "bfloat16" else None
 
-    def preprocess(batch):
-        if detect_image_chunk and len(batch) < batch_size:
-            # pad the final partial batch so the detector chunking holds
-            batch = list(batch) + [batch[-1]] * (batch_size - len(batch))
-        if device_resize:
-            raw, arrays = gen.preprocess_raw(batch)
-            if raw is not None:
-                return raw  # (uint8 [B, H, W] on the device, (wy, wx))
-            batch = arrays  # mixed shapes: the already-loaded images
-        return gen.preprocess(batch, transfer_dtype=upload_dtype)
+    def preprocess(batch, batch_id: int):
+        with span("serve.preprocess", batch_id):
+            if detect_image_chunk and len(batch) < batch_size:
+                # pad the final partial batch so the detector chunking holds
+                batch = list(batch) + [batch[-1]] * (batch_size - len(batch))
+            if device_resize:
+                raw, arrays = gen.preprocess_raw(batch)
+                if raw is not None:
+                    return raw  # (uint8 [B, H, W] on the device, (wy, wx))
+                batch = arrays  # mixed shapes: the already-loaded images
+            return gen.preprocess(batch, transfer_dtype=upload_dtype)
 
     buckets_cfg = model.cfg.generation.length_buckets
     b1 = min(buckets_cfg[0], max_length) if buckets_cfg else max_length
@@ -307,36 +323,38 @@ def generate_reports_pipelined(gen: ReportGenerator,
             decoded = decoded | dec2
         return ids, decoded
 
-    def finalize_speculative(out, budget: int, was_cascade: bool):
+    def finalize_speculative(out, budget: int, was_cascade: bool, batch_id: int):
         """Validation read of a speculatively decoded batch, made after the
         next batch is queued. was_cascade: whether its fused dispatch
         decoded at bucket b1 (the flag at dispatch time). Returns the
         post-ready outputs."""
-        sel_np = out["selected_regions"].cpu().numpy()
-        num_selected = int(sel_np.sum())
-        record_budget(num_selected, sel_np.shape[0])
-        ids, decoded = out["output_ids"], out["decoded_mask"]
-        if num_selected > budget:
-            # budget miss: rows past the predicted budget were not decoded;
-            # decode everything again at the true budget
-            ids, decoded = model.decode_selected_cascade(
-                params, out["region_features"], out["selected_regions"], max_length,
-                kv_cache_dtype=kv, first_count=num_selected, num_beams=num_beams,
-                early_stopping=early_stopping,
-                buckets=None if was_cascade else (max_length,), stats=stats)
-        elif was_cascade:
-            unfin = out["output_ids"][:, :, b1 - 1].cpu().numpy() != pad_id
-            if num_beams > 1:
-                unfin |= ~out["decode_done"].cpu().numpy()
-            rem = sel_np & out["decoded_mask"].cpu().numpy() & unfin
-            if stats is not None:
-                stats.record_rung(b1, num_selected)
-                stats.record_rung1(num_selected, int(rem.sum()))
-            ids, decoded = continue_cascade(out, ids, decoded, rem)
-        return {"output_ids": ids, "decoded_mask": decoded,
-                "selected_regions": out["selected_regions"],
-                "class_detected": out["class_detected"],
-                "detections": {"top_region_boxes": out["top_region_boxes"]}}
+        with span("serve.select_read", batch_id):
+            sel_np = out["selected_regions"].cpu().numpy()
+            num_selected = int(sel_np.sum())
+            generate_reports_pipelined.rows_selected += num_selected
+            record_budget(num_selected, sel_np.shape[0])
+            ids, decoded = out["output_ids"], out["decoded_mask"]
+            if num_selected > budget:
+                # budget miss: rows past the predicted budget were not decoded;
+                # decode everything again at the true budget
+                ids, decoded = model.decode_selected_cascade(
+                    params, out["region_features"], out["selected_regions"], max_length,
+                    kv_cache_dtype=kv, first_count=num_selected, num_beams=num_beams,
+                    early_stopping=early_stopping,
+                    buckets=None if was_cascade else (max_length,), stats=stats)
+            elif was_cascade:
+                unfin = out["output_ids"][:, :, b1 - 1].cpu().numpy() != pad_id
+                if num_beams > 1:
+                    unfin |= ~out["decode_done"].cpu().numpy()
+                rem = sel_np & out["decoded_mask"].cpu().numpy() & unfin
+                if stats is not None:
+                    stats.record_rung(b1, num_selected)
+                    stats.record_rung1(num_selected, int(rem.sum()))
+                ids, decoded = continue_cascade(out, ids, decoded, rem)
+            return {"output_ids": ids, "decoded_mask": decoded,
+                    "selected_regions": out["selected_regions"],
+                    "class_detected": out["class_detected"],
+                    "detections": {"top_region_boxes": out["top_region_boxes"]}}
 
     def serve_local() -> Iterator[List[GeneratedReport]]:
         """The pipeline over this process's shard of every batch; one list
@@ -349,30 +367,45 @@ def generate_reports_pipelined(gen: ReportGenerator,
             def ensure_pre(j: int) -> None:
                 # keep the preprocess thread up to two batches ahead
                 while len(pre_futures) <= min(j, len(batches) - 1):
-                    pre_futures.append(pre.submit(preprocess, batches[len(pre_futures)]))
+                    k = len(pre_futures)
+                    pre_futures.append(pre.submit(preprocess, batches[k], k))
 
             ensure_pre(0)
-            post_future = None
+            post_future = None   # (the post thread's future, its batch's index)
             det_ahead = {}  # batch index -> its detect outputs, dispatched early
             # a batch awaiting its validation read:
-            # (fused outputs, real images, predicted budget, was_cascade)
+            # (fused outputs, real images, predicted budget, was_cascade, index)
             spec_pending = None
 
-            def submit_post(device_out, n_images):
+            def submit_post(device_out, n_images, i):
                 nonlocal post_future
-                prev, post_future = post_future, post.submit(_postprocess, gen, device_out,
-                                                             n_images)
+                prev, post_future = post_future, (
+                    post.submit(_postprocess, gen, device_out, n_images, i), i)
                 return prev
 
             def submit_pending():
                 """Validate the pending speculative batch and hand it to the
                 post thread; returns the post future it displaced."""
                 nonlocal spec_pending
-                out, n_images, budget, was_cascade = spec_pending
+                out, n_images, budget, was_cascade, i = spec_pending
                 spec_pending = None
-                return submit_post(finalize_speculative(out, budget, was_cascade), n_images)
+                return submit_post(finalize_speculative(out, budget, was_cascade, i),
+                                   n_images, i)
 
-            for i, batch in enumerate(batches):
+            def hand_on(posted):
+                """Yields the reports of a batch handed to the post thread
+                (nothing for None)."""
+                if posted is not None:
+                    fut, i = posted
+                    with span("serve.post_wait", i):
+                        reports = fut.result()
+                    with span("serve.yielded", i):   # the caller's time
+                        yield reports
+
+            def serve_batch(i):
+                """Batch i: dispatched and handed to the post thread; yields
+                the reports of the batch handed on before it."""
+                nonlocal cascade_active, spec_pending
                 ensure_pre(i + 2)
                 sync_stats()
                 if cascade_active and bail_stats is not None and bail_stats.should_bail():
@@ -381,7 +414,8 @@ def generate_reports_pipelined(gen: ReportGenerator,
                     cascade_active = False
                     bail_stats.bailed_out = stats.bailed_out = True
 
-                pre_out = pre_futures[i].result()
+                with span("serve.pre_wait"):
+                    pre_out = pre_futures[i].result()
                 device_batch, mats = pre_out if isinstance(pre_out, tuple) else (pre_out, None)
                 if selection_override is None:
                     padded = int(device_batch.shape[0]) > real[i]
@@ -389,47 +423,48 @@ def generate_reports_pipelined(gen: ReportGenerator,
                         # speculative fused dispatch at the predicted budget,
                         # validated next iteration
                         budget = max(recent_budgets)
-                        out = model.detect_and_decode(
-                            params, device_batch, None, budget,
-                            b1 if cascade_active else max_length, kv_cache_dtype=kv,
-                            resize_mats=mats, image_chunk=detect_image_chunk,
-                            num_beams=num_beams, early_stopping=early_stopping,
-                            return_features=True,  # the budget-miss re-decode's input
-                            return_done=cascade_active and num_beams > 1)
+                        with span("serve.detect"):
+                            out = model.detect_and_decode(
+                                params, device_batch, None, budget,
+                                b1 if cascade_active else max_length, kv_cache_dtype=kv,
+                                resize_mats=mats, image_chunk=detect_image_chunk,
+                                num_beams=num_beams, early_stopping=early_stopping,
+                                return_features=True,  # the budget-miss re-decode's input
+                                return_done=cascade_active and num_beams > 1)
                         if spec_pending is not None:
-                            prev = submit_pending()
-                            if prev is not None:
-                                yield prev.result()
-                        spec_pending = (out, real[i], budget, cascade_active)
-                        continue
+                            yield from hand_on(submit_pending())
+                        spec_pending = (out, real[i], budget, cascade_active, i)
+                        return
 
                     # synchronous split path: batch 0 (seeds the predictor), a
                     # padded final batch (its pad rows' selection is zeroed on
                     # the host), or speculative_decode=False
-                    det = (det_ahead.pop(i) if i in det_ahead
-                           else model.detect(params, device_batch, mats,
-                                             image_chunk=detect_image_chunk))
+                    with span("serve.detect"):
+                        det = (det_ahead.pop(i) if i in det_ahead
+                               else model.detect(params, device_batch, mats,
+                                                 image_chunk=detect_image_chunk))
                     # lookahead (no speculation): queue detect(i+1) before the
                     # selection read below, if its preprocessing is done
                     if (not speculative_decode and i + 1 < len(batches)
                             and pre_futures[i + 1].done()):
                         nxt = pre_futures[i + 1].result()
                         nxt_imgs, nxt_mats = nxt if isinstance(nxt, tuple) else (nxt, None)
-                        det_ahead[i + 1] = model.detect(params, nxt_imgs, nxt_mats,
-                                                        image_chunk=detect_image_chunk)
+                        with span("serve.detect", i + 1):
+                            det_ahead[i + 1] = model.detect(params, nxt_imgs, nxt_mats,
+                                                            image_chunk=detect_image_chunk)
                     if spec_pending is not None:
                         # the previous batch was speculative: validate it now
-                        prev = submit_pending()
-                        if prev is not None:
-                            yield prev.result()
+                        yield from hand_on(submit_pending())
                     sel = det["selected_regions"]
-                    sel_np = sel.cpu().numpy()  # the host picks the row budget
+                    with span("serve.select_read"):
+                        sel_np = sel.cpu().numpy()  # the host picks the row budget
                     if sel_np.shape[0] > real[i]:
                         # padded final batch: its pad images select nothing
                         sel_np = sel_np.copy()
                         sel_np[real[i]:] = False
                         sel = torch.from_numpy(sel_np).to(dev)
                     num_selected = int(sel_np.sum())
+                    generate_reports_pipelined.rows_selected += num_selected
                     record_budget(num_selected, sel_np.shape[0])
                     if length_bucket_cascade and (cascade_active or not cascade_on):
                         ids, decoded = model.decode_selected_cascade(
@@ -454,14 +489,17 @@ def generate_reports_pipelined(gen: ReportGenerator,
                         host_sel = np.concatenate(
                             [host_sel, np.zeros((pad_b, host_sel.shape[1]), bool)])
                     sel = torch.from_numpy(np.ascontiguousarray(host_sel, bool)).to(dev)
-                    r_budget = model.budget_for(int(host_sel.sum()), int(device_batch.shape[0]))
-                    out = model.detect_and_decode(
-                        params, device_batch, sel, r_budget,
-                        b1 if cascade_active else max_length, kv_cache_dtype=kv,
-                        resize_mats=mats, image_chunk=detect_image_chunk,
-                        num_beams=num_beams, early_stopping=early_stopping,
-                        return_features=cascade_active,
-                        return_done=cascade_active and num_beams > 1)
+                    n_sel = int(host_sel.sum())
+                    generate_reports_pipelined.rows_selected += n_sel
+                    r_budget = model.budget_for(n_sel, int(device_batch.shape[0]))
+                    with span("serve.detect"):
+                        out = model.detect_and_decode(
+                            params, device_batch, sel, r_budget,
+                            b1 if cascade_active else max_length, kv_cache_dtype=kv,
+                            resize_mats=mats, image_chunk=detect_image_chunk,
+                            num_beams=num_beams, early_stopping=early_stopping,
+                            return_features=cascade_active,
+                            return_done=cascade_active and num_beams > 1)
                     ids, decoded = out["output_ids"], out["decoded_mask"]
                     if cascade_active:
                         # one small read decides whether rows go on to rung 2:
@@ -472,7 +510,6 @@ def generate_reports_pipelined(gen: ReportGenerator,
                             unfin |= ~out["decode_done"].cpu().numpy()
                         rem = host_sel & decoded.cpu().numpy() & unfin
                         if stats is not None:
-                            n_sel = int(host_sel.sum())
                             stats.record_rung(b1, n_sel)
                             stats.record_rung1(n_sel, int(rem.sum()))
                         ids, decoded = continue_cascade(out, ids, decoded, rem)
@@ -482,16 +519,15 @@ def generate_reports_pipelined(gen: ReportGenerator,
                                   "detections": {"top_region_boxes": out["top_region_boxes"]}}
 
                 # the post thread copies the batch to the host and assembles it
-                prev = submit_post(device_out, real[i])
-                if prev is not None:
-                    yield prev.result()
+                yield from hand_on(submit_post(device_out, real[i], i))
 
+            for i in range(len(batches)):
+                with span("serve.batch", i):
+                    yield from serve_batch(i)
             if spec_pending is not None:
                 # the last batch was speculative: validate it now
-                prev = submit_pending()
-                if prev is not None:
-                    yield prev.result()
-            yield post_future.result()
+                yield from hand_on(submit_pending())
+            yield from hand_on(post_future)
 
     if mesh is None:
         yield from serve_local()
@@ -499,3 +535,6 @@ def generate_reports_pipelined(gen: ReportGenerator,
     for reports in serve_local():
         yield [r for part in mesh_lib.gather_objects(reports, mesh) for r in part]
     sync_stats()
+
+
+generate_reports_pipelined.rows_selected = 0

@@ -42,6 +42,7 @@ from rgrg_tpu_torch.core.device import DeviceLike
 from rgrg_tpu_torch.models.full_model import RGRG
 from rgrg_tpu_torch.train import assign
 from rgrg_tpu_torch.train import losses as L
+from rgrg_tpu_torch.utils.logging import span
 
 Params = Dict[str, Any]
 
@@ -269,23 +270,29 @@ def make_train_step(model: RGRG, tcfg: TrainConfig, stage: int = 3,
     numpy arrays or tensors; losses are detached tensors on the device.
     With a mesh, `batch` is this rank's rows of the global batch
     (core/mesh.shard_pytree_batch), `rng` is seeded alike on every rank,
-    and the losses returned are the global batch's."""
+    and the losses returned are the global batch's. While spans are
+    recorded (utils/logging), the step is a `train.step` span and its move
+    of the batch to the card a `train.to_device`."""
 
     def train_step(state: TrainState, batch: Dict[str, Any], rng: assign.Rng):
-        device = state.params["decoder"]["wte"]["embedding"].device
-        with mesh_lib.active(mesh):
-            total, losses = compute_losses(model, state.params, batch_to_device(batch, device),
-                                           rng, stage, tcfg, lm_budget,
-                                           mixed_precision=mixed_precision,
-                                           remat_decoder=remat_decoder)
-            total.backward()
-        mesh_lib.all_reduce_grads_(state.opt_state.tensors, mesh)
-        names = list(losses)
-        summed = mesh_lib.global_sum(torch.stack([losses[k].detach().float()
-                                                  for k in names]), mesh)
-        losses = dict(zip(names, summed))
-        state.opt_state.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        with span("train.step"):
+            device = state.params["decoder"]["wte"]["embedding"].device
+            with mesh_lib.active(mesh):
+                with span("train.to_device"):
+                    on_device = batch_to_device(batch, device)
+                total, losses = compute_losses(model, state.params, on_device,
+                                               rng, stage, tcfg, lm_budget,
+                                               mixed_precision=mixed_precision,
+                                               remat_decoder=remat_decoder)
+                del on_device   # the batch's tensors free before the backward, as a temporary's
+                total.backward()
+            mesh_lib.all_reduce_grads_(state.opt_state.tensors, mesh)
+            names = list(losses)
+            summed = mesh_lib.global_sum(torch.stack([losses[k].detach().float()
+                                                      for k in names]), mesh)
+            losses = dict(zip(names, summed))
+            state.opt_state.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in losses.items()}
 
     return train_step

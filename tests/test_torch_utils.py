@@ -8,7 +8,8 @@ package's.
   dotted `named_parameters`, BatchNorm statistics being buffers in the port
   and `batch_stats` in JAX).
 - `trace(log_dir)` writes a Chrome trace of the block on the CPU and is a
-  no-op for None.
+  no-op for None; the block's spans go into it on its time base, with the
+  counters' change over the block.
 """
 
 import json
@@ -22,7 +23,7 @@ from rgrg_tpu.models.full_model import RGRG as JRGRG
 from rgrg_tpu.utils.summary import param_counts as j_param_counts, summarize as j_summarize
 
 from rgrg_tpu_torch.core.convert import from_jax_params
-from rgrg_tpu_torch.utils.logging import trace
+from rgrg_tpu_torch.utils.logging import span, trace
 from rgrg_tpu_torch.utils.summary import param_counts, summarize
 
 from tests.test_torch_pipeline import configs
@@ -81,3 +82,28 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     with trace(None):
         pass
     assert list(log_dir.iterdir()) == files
+
+
+def test_trace_writes_the_blocks_spans_on_its_time_base(tmp_path):
+    from rgrg_tpu_torch.decode.greedy import greedy_generate
+    log_dir = tmp_path / "trace"
+    with trace(str(log_dir)):
+        with span("outer", batch=4):
+            with span("matmul"):
+                torch.ones(256, 256) @ torch.ones(256, 256)
+        greedy_generate.rows += 3          # a counter's change over the block
+    doc = json.loads(next(log_dir.glob("*.pt.trace.json")).read_text())
+    events = doc["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "rgrg_span"}
+    assert set(spans) == {"outer", "matmul"}
+    assert spans["matmul"]["args"]["parent"] == spans["outer"]["args"]["id"]
+    assert spans["matmul"]["args"]["batch"] == spans["outer"]["args"]["batch"] == 4
+    track = [e for e in events if e.get("ph") == "M" and e.get("tid") == spans["outer"]["tid"]]
+    assert track and track[0]["args"]["name"].startswith("spans: ")
+    # the product the span timed lies inside it on the trace's clock
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    s = spans["matmul"]
+    assert s["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= s["ts"] + s["dur"] + 50
+    assert doc["rgrg"]["spans_dropped"] == 0
+    assert doc["rgrg"]["counters"]["greedy_generate.rows"] == 3
+    assert "idle_by_span_s" not in doc["rgrg"]          # no device activity on the CPU
