@@ -436,17 +436,96 @@ def decode_step(params: Params, token: torch.Tensor, step: int,
     return _logits(params, x, cfg), cache
 
 
-def cache_to_beam_layers(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def cache_to_beam_layers(cache: Dict[str, torch.Tensor],
+                         out: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Prefill cache [L, B*K, H, T, *] -> per-layer head-leading buffers
     {"k_0": [H, B*K, T, *], ..., "v_23", and "k_scale_i"/"v_scale_i" for
-    int8}, each contiguous (one copy, after prefill).
+    int8}, each contiguous (one copy, after prefill). out: buffers of
+    those names to copy into instead of allocating (a beam step graph
+    set's fixed cache), the prefill's T slots into their first T; returned.
 
     The JAX package can also merge adjacent head pairs into the last dim
     (pack_pairs) to avoid the TPU's 128-lane padding of 64-wide rows; its
     outputs are identical either way, and a 64-dim bf16 row is already 128
     bytes on the card, so the port keeps the unpacked layout only."""
-    return {f"{name}_{i}": c[i].transpose(0, 1).contiguous()
-            for name, c in cache.items() for i in range(c.shape[0])}
+    if out is None:
+        return {f"{name}_{i}": c[i].transpose(0, 1).contiguous()
+                for name, c in cache.items() for i in range(c.shape[0])}
+    for name, c in cache.items():
+        for i in range(c.shape[0]):
+            out[f"{name}_{i}"][:, :, :c.shape[3]].copy_(c[i].transpose(0, 1))
+    return out
+
+
+def _write_slot(buf: torch.Tensor, slot, val: torch.Tensor) -> None:
+    """buf[:, :, slot] = val for buf [H, B*K, T, *] and val [H, B*K, *].
+    slot: a host int, or a one-element int64 tensor on buf's device (the
+    graph-ready step, whose slot lives on the device)."""
+    if isinstance(slot, int):
+        buf[:, :, slot] = val
+    else:
+        buf.index_copy_(2, slot, val.to(buf.dtype).unsqueeze(2))
+
+
+def beam_embed(params: Params, token: torch.Tensor, position, cfg: DecoderConfig
+               ) -> torch.Tensor:
+    """The beam step's input [B*K, 1, D]: token [B*K]'s embedding at
+    `position` (step+1; a host int, or a one-element int64 tensor on the
+    device)."""
+    bk = token.shape[0]
+    wte = params["wte"]["embedding"]
+    if isinstance(position, int):
+        pos = torch.full((bk, 1), position, dtype=torch.long, device=wte.device)
+    else:
+        pos = position.view(1, 1).expand(bk, 1)
+    return wte[token[:, None]] + _positions_embed(params, pos, cfg)
+
+
+def beam_layer_in(params: Params, i: int, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], slot, cfg: DecoderConfig,
+                  q_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer i of a beam step up to its attention: ln_1, c_attn, and the
+    token's K/V written into cache `slot` (a host int or a one-element
+    int64 tensor; quantized for an int8 cache). Returns the queries
+    [B*K, H, D], contiguous (copied into `q_out` when given)."""
+    bp = params[f"h_{i}"]
+    bk = x.shape[0]
+    h, d = cfg.num_heads, cfg.head_dim
+    qkv = _dense(_layer_norm(x, bp["ln_1"], cfg.layer_norm_eps), bp["attn"]["c_attn"])
+    q, k_w, v_w = torch.split(qkv, cfg.hidden_dim, dim=-1)
+    kh = k_w.reshape(bk, h, d).transpose(0, 1)                       # [H,BK,D]
+    vh = v_w.reshape(bk, h, d).transpose(0, 1)
+    if cache["k_0"].dtype == torch.int8:
+        for name, val in (("k", kh), ("v", vh)):
+            qv, sv = _quantize_kv(val)
+            _write_slot(cache[f"{name}_{i}"], slot, qv)
+            _write_slot(cache[f"{name}_scale_{i}"], slot, sv)
+    else:
+        _write_slot(cache[f"k_{i}"], slot, kh)
+        _write_slot(cache[f"v_{i}"], slot, vh)
+    q = q.reshape(bk, h, d)
+    return q.contiguous() if q_out is None else q_out.copy_(q)
+
+
+def beam_layer_attention(cache: Dict[str, torch.Tensor], i: int, q: torch.Tensor,
+                         ancestry: torch.Tensor, slot: int, scale: float, t0: int,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer i's ancestry-masked attention over slots t0..slot (host ints):
+    ctx [B*K, H, D] f32 (ops/beam_attn.beam_attention, kernel K3 on the
+    card; into `out` when given)."""
+    return beam_attention(q, cache[f"k_{i}"], cache[f"v_{i}"], ancestry, slot,
+                          scale=scale, t0=t0, k_scale=cache.get(f"k_scale_{i}"),
+                          v_scale=cache.get(f"v_scale_{i}"), out=out)
+
+
+def beam_layer_out(params: Params, i: int, x: torch.Tensor, ctx: torch.Tensor,
+                   cfg: DecoderConfig) -> torch.Tensor:
+    """Layer i of a beam step after its attention: c_proj of ctx
+    [B*K, H, D] (f32, cast to x's dtype), the residual, the MLP."""
+    bp = params[f"h_{i}"]
+    x = x + _dense(ctx.to(x.dtype).reshape(x.shape[0], 1, -1), bp["attn"]["c_proj"])
+    return _mlp(x, bp, cfg)
 
 
 def decode_step_beam(params: Params, token: torch.Tensor, step: int,
@@ -463,36 +542,17 @@ def decode_step_beam(params: Params, token: torch.Tensor, step: int,
     attention reads the named rows (ops/beam_attn.beam_attention, kernel K3
     on the card). no_image: attend from slot 1 on (t0=1), so the zero
     image slot of a vanilla GPT-2 prefill is left out, not merely given a
-    weight of exp(-1e4). Returns (logits [B*K, vocab], cache)."""
-    bk = token.shape[0]
-    wte = params["wte"]["embedding"]
-    pos = torch.full((bk, 1), step + 1, dtype=torch.long, device=wte.device)
-    x = wte[token[:, None]] + _positions_embed(params, pos, cfg)
+    weight of exp(-1e4). Returns (logits [B*K, vocab], cache).
+
+    Each layer is beam_layer_in, beam_layer_attention, beam_layer_out: a
+    step graph set (decode/beam.StepGraphs) runs the same pieces with the
+    step held on the device."""
+    x = beam_embed(params, token, step + 1, cfg)
     slot = step + 2
-    h, d = cfg.num_heads, cfg.head_dim
-    quantized = cache["k_0"].dtype == torch.int8
-    scale = _attn_scale(d, x.dtype)
-
+    scale = _attn_scale(cfg.head_dim, x.dtype)
+    t0 = 1 if no_image else 0
     for i in range(cfg.num_layers):
-        bp = params[f"h_{i}"]
-        qkv = _dense(_layer_norm(x, bp["ln_1"], cfg.layer_norm_eps),
-                     bp["attn"]["c_attn"])
-        q, k_w, v_w = torch.split(qkv, cfg.hidden_dim, dim=-1)
-        kh = k_w.reshape(bk, h, d).transpose(0, 1)                   # [H,BK,D]
-        vh = v_w.reshape(bk, h, d).transpose(0, 1)
-        if quantized:
-            for name, val in (("k", kh), ("v", vh)):
-                qv, sv = _quantize_kv(val)
-                cache[f"{name}_{i}"][:, :, slot] = qv
-                cache[f"{name}_scale_{i}"][:, :, slot] = sv
-        else:
-            cache[f"k_{i}"][:, :, slot] = kh
-            cache[f"v_{i}"][:, :, slot] = vh
-        ctx = beam_attention(q.reshape(bk, h, d).contiguous(), cache[f"k_{i}"],
-                             cache[f"v_{i}"], ancestry, slot, scale=scale,
-                             t0=1 if no_image else 0, k_scale=cache.get(f"k_scale_{i}"),
-                             v_scale=cache.get(f"v_scale_{i}"))       # [BK,H,D] f32
-        x = x + _dense(ctx.to(x.dtype).reshape(bk, 1, h * d), bp["attn"]["c_proj"])
-        x = _mlp(x, bp, cfg)
-
+        q = beam_layer_in(params, i, x, cache, slot, cfg)
+        ctx = beam_layer_attention(cache, i, q, ancestry, slot, scale, t0)
+        x = beam_layer_out(params, i, x, ctx, cfg)
     return _logits(params, x, cfg), cache

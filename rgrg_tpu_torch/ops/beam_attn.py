@@ -181,33 +181,41 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, anc: torch.Tensor,
 def beam_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    anc: torch.Tensor, slot: int, *, scale: float, t0: int = 0,
                    k_scale: Optional[torch.Tensor] = None,
-                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   v_scale: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ctx [B*K, H, D] f32 of one beam step for one layer (module
     docstring). CPU tensors: the plain version. CUDA tensors: one launch
     of kernel K3 (counted in `beam_attention.launches`) for H <= 32 heads
     of D <= 128 dims, planned by `plan`; the ancestry must hold beams
     0..K-1 (not checked on the card: that would cost a device read per
-    launch). Allocates only the output. It has no backward: with grad
-    enabled, an input that requires grad raises rather than getting a
-    result cut off from the graph."""
+    launch). Allocates only the output; `out` (a contiguous f32
+    [B*K, H, D] on q's device) receives it instead, and is returned. It
+    has no backward: with grad enabled, an input that requires grad
+    raises rather than getting a result cut off from the graph."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, k_scale, v_scale)):
         raise RuntimeError("beam_attention has no backward; call it under "
                            "torch.no_grad() or with inputs that need no grad")
     _check(q, k, v, anc, slot, t0, k_scale, v_scale)
+    bk, h, d = q.shape
+    if out is not None and (out.dtype != torch.float32 or tuple(out.shape) != (bk, h, d)
+                            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{bk}, {h}, {d}] on "
+                         f"{q.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     if q.device.type == "cpu":
-        return beam_attention_plain(q, k, v, anc, slot, scale=scale, t0=t0,
-                                    k_scale=k_scale, v_scale=v_scale)
+        ctx = beam_attention_plain(q, k, v, anc, slot, scale=scale, t0=t0,
+                                   k_scale=k_scale, v_scale=v_scale)
+        return ctx if out is None else out.copy_(ctx)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    bk, h, d = q.shape
     if h > MAX_HEADS or d > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes at most {MAX_HEADS} heads of "
                          f"{MAX_HEAD_DIM} dims; got {h} x {d}")
     tensors = [q, k, v, anc] + ([k_scale, v_scale] if k_scale is not None else [])
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, k, v, anc and the scales must be contiguous")
-    out = torch.empty((bk, h, d), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((bk, h, d), dtype=torch.float32, device=q.device)
     if bk == 0 or d == 0:
         return out
     p = plan(bk, anc.shape[1], h, d, k.shape[2], k.dtype,

@@ -362,7 +362,7 @@ def generate_reports_pipelined(gen: ReportGenerator,
         nonlocal cascade_active
         with cf.ThreadPoolExecutor(max_workers=1) as pre, \
                 cf.ThreadPoolExecutor(max_workers=1) as post:
-            pre_futures: List[cf.Future] = []
+            pre_futures: List[Optional[cf.Future]] = []
 
             def ensure_pre(j: int) -> None:
                 # keep the preprocess thread up to two batches ahead
@@ -416,6 +416,9 @@ def generate_reports_pipelined(gen: ReportGenerator,
 
                 with span("serve.pre_wait"):
                     pre_out = pre_futures[i].result()
+                # the upload lives on in this batch's locals only (a look-ahead's
+                # entry stays until here: this reads it a second time)
+                pre_futures[i] = None
                 device_batch, mats = pre_out if isinstance(pre_out, tuple) else (pre_out, None)
                 if selection_override is None:
                     padded = int(device_batch.shape[0]) > real[i]

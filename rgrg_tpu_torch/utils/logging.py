@@ -239,7 +239,8 @@ def idle_by_span(spans: Iterable[Mapping], busy: Sequence[Tuple[int, int]],
 
 
 _COUNTERS = (("rgrg_tpu_torch.decode.greedy", "greedy_generate", ("prefills", "steps", "rows")),
-             ("rgrg_tpu_torch.decode.beam", "beam_generate", ("steps", "rows")),
+             ("rgrg_tpu_torch.decode.beam", "beam_generate",
+              ("steps", "rows", "graph_steps", "graph_captures")),
              ("rgrg_tpu_torch.serving", "generate_reports_pipelined", ("rows_selected",)),
              ("rgrg_tpu_torch.ops.nms", "nms_keep_mask", ("launches",)),
              ("rgrg_tpu_torch.ops.roi_align", "roi_align", ("launches",)),

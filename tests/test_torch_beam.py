@@ -3,7 +3,10 @@
 Layers, bottom up: the plain version of kernel K3 (ops/beam_attn.py)
 against the Pallas kernel in interpret mode and the dense oracle of
 tests/test_beam_attn_pallas.py; decode_step_beam and beam_generate against
-JAX (and the HF 4.19 oracle of tests/test_beam.py); the full model's beam
+JAX (and the HF 4.19 oracle of tests/test_beam.py); the graph-ready step
+that CUDA graphs replay (decode/beam.StepGraphs, its segments run eagerly
+here) against the eager beam_generate, and the policy that keeps its sets
+(the card's replays: tests/test_torch_beam_graphs.py); the full model's beam
 decode, cascade, generate_reports at its beam-4 default and the two
 interactive APIs against the JAX pipeline stage by stage.
 
@@ -17,6 +20,7 @@ beam decisions all clear the two libraries' f32 disagreement (~1e-6) by
 """
 
 import dataclasses
+import weakref
 
 import numpy as np
 import jax
@@ -274,6 +278,95 @@ def test_beam_generate_active_done_and_int8_identical_to_jax(weights, eos_cfgs):
         want = j_beam(jp, jnp.asarray(feats8), jcfg, cache_dtype=jnp.int8,
                       pack_kv_pairs=pack, **kw)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------- graph-ready step, on the CPU
+
+@pytest.mark.parametrize("early", [False, True], ids=["late", "early"])
+@pytest.mark.parametrize("no_image", [False, True], ids=["t0_0", "t0_1"])
+@pytest.mark.parametrize("cache", [None, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+def test_graph_ready_step_identical_to_eager(weights, eos_cfgs, cache, no_image, early):
+    """The step that CUDA graphs replay (position, slot and cur_len held on
+    the device, fixed buffers, its segments run eagerly here) against the
+    eager beam_generate, ids and `done` identical: two batches in turn
+    through one set of buffers, whose cache starts filled with a value no
+    decode writes, so a read of a stale row past the slot would show."""
+    _, tp = weights
+    _, tcfg = eos_cfgs
+    items, k = 4, 4
+    graphs = beam.StepGraphs(tp, tcfg, items, k, MAX_LEN, cache or torch.float32, 0.7,
+                             early, no_image)
+    for buf in graphs.cache.values():
+        buf.fill_(100)
+    kw = dict(max_length=MAX_LEN, num_beams=k, length_penalty=0.7, early_stopping=early,
+              cache_dtype=cache, no_image=no_image, return_done=True)
+    ended = 0
+    for seed, active in ((2, [True, False, True, True]), (3, [True, True, True, False])):
+        feats = None if no_image else torch.from_numpy(
+            np.random.default_rng(seed).normal(0, 3, (items, 16)).astype(np.float32))
+        act = torch.tensor(active)
+        steps = beam_generate.steps
+        want_ids, want_done = beam_generate(tp, feats, tcfg, active=act, batch=items, **kw)
+        eager_steps, steps = beam_generate.steps - steps, beam_generate.steps
+        ids, done = beam._decode(tp, feats, items, tcfg, graphs, active=act, **kw)
+        assert beam_generate.steps - steps == eager_steps
+        np.testing.assert_array_equal(ids.numpy(), want_ids.numpy(), err_msg=f"seed {seed}")
+        np.testing.assert_array_equal(done.numpy(), want_done.numpy())
+        assert done is not graphs.state["done"]
+        # the device step advanced once a step, as the host's
+        assert graphs.idx.tolist() == [eager_steps + 1, eager_steps + 2, eager_steps + 3]
+        ended += int((ids.numpy()[np.array(active), 1:-1] == tcfg.eos_token_id).sum())
+    # with features, beams finished early, so the pool and the done rule acted
+    # (BOS alone leads this network to no early EOS)
+    assert ended > 0 or no_image
+
+
+def test_beam_attention_out_receives_the_context():
+    q, k, v, anc, slot = _attn_case(3, 4, 2)
+    args = [torch.from_numpy(x) for x in (q, k, v, anc)]
+    want = beam_attention(*args, slot, scale=0.3)
+    buf = torch.full_like(want, float("nan"))
+    assert beam_attention(*args, slot, scale=0.3, out=buf) is buf
+    assert torch.equal(buf, want)
+    for bad in (torch.empty(want.shape, dtype=torch.float64),
+                torch.empty(want.shape[0], 1, *want.shape[1:]),
+                torch.empty(want.shape[::-1]).transpose(0, 2)):
+        with pytest.raises(ValueError, match="out must be"):
+            beam_attention(*args, slot, scale=0.3, out=bad)
+
+
+def test_graph_sets_second_sight_and_lru_eviction():
+    """A key gets its set the second time it is seen; two sets are kept,
+    the least recently used evicted and freed; keys seen once are
+    remembered up to a bound."""
+    class Set:
+        pass
+
+    sets = beam._GraphSets(keep=2, remember=2)
+    made = []
+
+    def get(key):
+        return sets.get(key, lambda: made.append(key) or Set())
+
+    assert get("a") is None and made == []
+    a = get("a")
+    assert made == ["a"] and get("a") is a
+    assert get("b") is None
+    b = get("b")
+    assert get("a") is a   # a is now the most recently used
+    assert get("c") is None
+    freed = weakref.ref(b)
+    del b
+    c = get("c")
+    assert list(sets.sets) == ["a", "c"] and freed() is None
+    assert get("c") is c and made == ["a", "b", "c"]
+    for key in ("x", "y", "z"):
+        assert get(key) is None
+    assert get("x") is None   # forgotten: only the last two one-off keys are kept
+    assert get("z") is not None
+    sets.clear()
+    assert not sets.sets and not sets.seen
 
 
 def test_stable_topk_tie_order_matches_lax_top_k():

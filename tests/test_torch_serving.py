@@ -18,6 +18,8 @@ cascade bail-out; the CascadeStats snapshots must be equal too.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import jax
@@ -202,3 +204,30 @@ def test_pipelined_empty_and_kv_cache_dtype_spellings(setup):
             list(generate_reports_pipelined(gen, images, kv_cache_dtype=bad, **kw))
     with pytest.raises(ValueError, match="multiple"):
         list(generate_reports_pipelined(gen, images, batch_size=4, detect_image_chunk=3))
+
+
+def test_pipelined_frees_each_upload_once_served(setup):
+    """A batch's preprocess output (the device upload) is let go once the
+    server has taken it: by the first yield (inside batch 2, with
+    speculation), the uploads of batches 0 and 1 are gone; every other
+    batch's by the end."""
+    gen = ReportGenerator(setup["tp"], GPT2Tokenizer.dummy(), cfg=setup["tcfg"])
+    uploads = []
+    raw = gen.preprocess_raw
+
+    def recorded(batch):
+        out = raw(batch)
+        uploads.append(weakref.ref(out[0][0]))
+        return out
+
+    gen.preprocess_raw = recorded
+    stream = generate_reports_pipelined(gen, setup["images"] * 2, batch_size=2,
+                                        max_length=6)
+    first = next(stream)
+    gc.collect()
+    assert len(first) == 2 and len(uploads) >= 3
+    assert uploads[0]() is None and uploads[1]() is None
+    rest = [r for c in stream for r in c]
+    gc.collect()
+    assert len(rest) == 6 and len(uploads) == 4
+    assert all(u() is None for u in uploads)
