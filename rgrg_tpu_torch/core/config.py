@@ -123,6 +123,69 @@ class DecoderConfig:
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_heads
 
+    @property
+    def kind(self) -> str:
+        """Which decoder this is: the module of models/ that runs it
+        (models.decoder_module)."""
+        return "gpt2"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoonlightConfig(DecoderConfig):
+    """The DeepSeek-V3 block of Moonlight-16B-A3B as RGRG's decoder
+    (models/moonlight.py): latent attention (MLA) without query
+    compression, one dense SwiGLU layer, then layers of routed experts
+    (sigmoid scores, a correction bias that only decides the choice, the
+    chosen weights renormalised and scaled) beside shared ones; RMSNorm,
+    RoPE, an untied head. The defaults are the published sizes; the
+    GPT-2 fields keep their meaning (hidden_dim = hidden_size, num_layers
+    = num_hidden_layers, layer_norm_eps = rms_norm_eps); max_positions
+    and positions_from_wte are unused."""
+
+    vocab_size: int = 163840
+    hidden_dim: int = 2048
+    num_heads: int = 16
+    num_layers: int = 27
+    max_positions: int = 8192
+    # the published ids were not at hand: two ids at the top of the vocabulary
+    bos_token_id: int = 163838
+    eos_token_id: int = 163839
+    pad_token_id: int = 163839
+    embd_dropout: float = 0.0
+    attn_dropout: float = 0.0
+    resid_dropout: float = 0.0
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rope_theta: float = 50000.0
+
+    @property
+    def kind(self) -> str:
+        return "moonlight"
+
+    @property
+    def head_dim(self) -> int:
+        """A query's width: its RoPE-free and RoPE parts."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A latent cache row: the compressed KV and the shared RoPE key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_layers - self.first_k_dense_replace
+
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:

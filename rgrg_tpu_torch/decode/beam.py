@@ -19,14 +19,17 @@ Ties break by the lower index everywhere, as jax.lax.top_k does
 (ops/topk.stable_topk). The finished pool is a fixed [B, K] top-K set (HF's add
 with eviction keeps exactly the K best, so a top-K merge is the same).
 Beam reordering rewrites the [B, K, T] ancestry table, never the cache
-(gpt2.decode_step_beam). The loop reads one bool per step on the host to
+(decode_step_beam). The loop reads one bool per step on the host to
 stop once every item is done.
 
-On the card the steps replay from CUDA graphs (StepGraphs): a decode
-shape seen the second time gets a set of fixed buffers, its step held on
-the device, and the step captured as one graph per stretch between two
-launches of kernel K3, which stays eager. At most two sets are kept,
-least recently used evicted first. CPU tensors run the eager step.
+The decoder is the module of models/ that the config names
+(models.decoder_module: GPT-2 or Moonlight). On the card the steps replay
+from CUDA graphs (StepGraphs): a decode shape seen the second time gets a
+set of fixed buffers, its step held on the device, and the step captured
+as one graph per stretch between two launches of kernel K3, which stays
+eager (GPT-2), or as one graph (Moonlight, whose attention is plain torch
+ops). At most two sets are kept, least recently used evicted first. CPU
+tensors run the eager step.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from rgrg_tpu_torch.core.config import DecoderConfig
-from rgrg_tpu_torch.models import gpt2
+from rgrg_tpu_torch.models import decoder_module
 from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
 from rgrg_tpu_torch.ops.topk import stable_topk
 from rgrg_tpu_torch.utils.logging import span
@@ -209,13 +212,16 @@ class StepGraphs:
     device: `idx` = (position id, cache slot = cur_len, next slot), which
     the step advances itself, and the length-penalty divisors in a table
     indexed by cur_len. The tokens, the ancestry, the beam state and each
-    layer's cache are buffers of the set, updated in place. The step runs
-    as num_layers + 1 segments around the layers' launches of K3
-    (gpt2.beam_layer_attention), which stay eager: K3 takes its slot as a
-    host int (`step`'s argument, which must equal idx[1]). Segment 0 embeds
-    and runs layer 0 to its cache write; segment i runs layer i-1 from its
+    layer's cache (the decoder module's `beam_buffers`) are buffers of the
+    set, updated in place. Where the decoder's attention is eager (GPT-2's
+    K3, gpt2.beam_layer_attention, which takes its slot as a host int:
+    `step`'s argument, which must equal idx[1]) the step runs as
+    num_layers + 1 segments around its launches: segment 0 embeds and runs
+    layer 0 to its cache write; segment i runs layer i-1 from its
     attention on and layer i to its cache write; the last runs the last
-    layer's tail, the logits, `process` and `reorder_ancestry`.
+    layer's tail, the logits, `process` and `reorder_ancestry`. Otherwise
+    (Moonlight) the step is one segment: the embedding, `beam_layers`, the
+    logits, `process` and `reorder_ancestry`.
 
     On CUDA `capture` runs one step eagerly on a side stream, then records
     each segment as a CUDA graph in replay order into one private memory
@@ -231,19 +237,16 @@ class StepGraphs:
         wte = params["wte"]["embedding"]
         dev, k = wte.device, num_beams
         bk, t_total = items * k, max_length + 1
-        h, d = cfg.num_heads, cfg.head_dim
+        self.mod = decoder_module(cfg)
         self.params, self.cfg, self.max_length = params, cfg, max_length
         self.lp_args = (k, cfg, length_penalty, early_stopping)
-        self.scale = gpt2._attn_scale(d, wte.dtype)
+        self.eager_attention = self.mod.BEAM_ATTENTION_EAGER
+        self.segments = cfg.num_layers + 1 if self.eager_attention else 1
+        if self.eager_attention:
+            self.scale = self.mod._attn_scale(cfg.head_dim, wte.dtype)
         self.t0 = 1 if no_image else 0
-        self.cache = {}
-        for i in range(cfg.num_layers):
-            for name in ("k", "v"):
-                self.cache[f"{name}_{i}"] = torch.empty((h, bk, t_total, d),
-                                                        dtype=cache_dtype, device=dev)
-                if cache_dtype == torch.int8:
-                    self.cache[f"{name}_scale_{i}"] = torch.empty(
-                        (h, bk, t_total, 1), dtype=torch.float32, device=dev)
+        bufs = self.mod.beam_buffers(params, cfg, bk, t_total, cache_dtype)
+        self.cache, self.q, self.ctx = bufs["cache"], bufs.get("q"), bufs.get("ctx")
         self.tok = torch.empty(bk, dtype=torch.long, device=dev)
         self.anc = torch.empty((items, k, t_total), dtype=torch.int32, device=dev)
         self.state = init_state(items, k, max_length, cfg, dev)
@@ -251,8 +254,6 @@ class StepGraphs:
         self._idx0 = torch.tensor([1, 2, 3], device=dev)
         self.lp = torch.tensor([length_penalty_divisor(n, length_penalty)
                                 for n in range(max_length)], device=dev)
-        self.q = torch.empty((bk, h, d), dtype=wte.dtype, device=dev)
-        self.ctx = torch.empty((bk, h, d), dtype=torch.float32, device=dev)
         self.lock = threading.Lock()   # one decode at a time over the buffers
         self.graphs = None
         self._k4 = None
@@ -268,18 +269,20 @@ class StepGraphs:
         self.idx.copy_(self._idx0)
 
     def _segment(self, i: int) -> None:
-        p, cfg = self.params, self.cfg
+        m, p, cfg = self.mod, self.params, self.cfg
         pos, slot, nxt = self.idx[0:1], self.idx[1:2], self.idx[2:3]
         if i == 0:
-            x = gpt2.beam_embed(p, self.tok, pos, cfg)
+            x = m.beam_embed(p, self.tok, pos, cfg)
         else:
-            x = gpt2.beam_layer_out(p, i - 1, self._x, self.ctx, cfg)
-        if i < cfg.num_layers:
-            gpt2.beam_layer_in(p, i, x, self.cache, slot, cfg, q_out=self.q)
+            x = m.beam_layer_out(p, i - 1, self._x, self.ctx, cfg)
+        if not self.eager_attention:
+            x = m.beam_layers(p, x, self.cache, slot, self.anc, cfg)
+        elif i < cfg.num_layers:
+            m.beam_layer_in(p, i, x, self.cache, slot, cfg, q_out=self.q)
             self._x = x   # the next segment's input (from the pool while capturing)
             return
         self._x = None
-        new_beam, tok, state = process(gpt2._logits(p, x, cfg), self.state, slot,
+        new_beam, tok, state = process(m._logits(p, x, cfg), self.state, slot,
                                        *self.lp_args, lp_table=self.lp)
         self.anc.copy_(reorder_ancestry(self.anc, new_beam, nxt))
         self.tok.copy_(tok)
@@ -291,16 +294,15 @@ class StepGraphs:
         """One decode step writing cache slot `slot` (cur_len); True when it
         was replayed from the graphs."""
         assert slot < self.max_length, "the loop decodes while cur_len < max_length"
-        n = self.cfg.num_layers
-        for i in range(n + 1):
+        for i in range(self.segments):
             if self.graphs is None:
                 self._segment(i)
             else:
                 self.graphs[i].replay()
                 dense_wint8.launches += self._k4[i]
-            if i < n:
-                gpt2.beam_layer_attention(self.cache, i, self.q, self.anc, slot,
-                                          self.scale, self.t0, out=self.ctx)
+            if i < self.segments - 1:
+                self.mod.beam_layer_attention(self.cache, i, self.q, self.anc, slot,
+                                              self.scale, self.t0, out=self.ctx)
         return self.graphs is not None
 
     def capture(self, slot: int) -> None:
@@ -316,7 +318,7 @@ class StepGraphs:
         with torch.cuda.stream(side):
             self.step(slot)
             pool = torch.cuda.graph_pool_handle()
-            for i in range(self.cfg.num_layers + 1):
+            for i in range(self.segments):
                 g = torch.cuda.CUDAGraph()
                 before = dense_wint8.launches
                 # thread_local: the serving loop's pre and post threads keep
@@ -394,7 +396,8 @@ def beam_generate(params: Dict[str, Any], image_features: Optional[torch.Tensor]
     cap (is_done depends on cur_len only), so its output is the same under
     any longer cap; the length-bucket cascade re-decodes only the others.
     image_features=None with `batch` B and no_image=True runs vanilla GPT-2
-    (gpt2.prefill without features; the steps leave slot 0 out).
+    (gpt2.prefill without features; the steps leave slot 0 out; the
+    Moonlight decoder raises NotImplementedError).
 
     On CUDA a decode key (lanes, cache slots and dtype, the parameters'
     dtype and tensors, beams, length penalty, early stopping, no_image, the
@@ -436,15 +439,16 @@ def _decode(params, image_features, b: int, cfg: DecoderConfig,
     `graphs` when given (its segments eagerly until captured; on CUDA its
     first step captures)."""
     k = num_beams
+    mod = decoder_module(cfg)
     feats = None if image_features is None else image_features.repeat_interleave(k, dim=0)
     # into a set's cache only the two slots prefill writes are copied: a step
     # writes its slot before any read of it
-    logits0, cache = gpt2.prefill(params, feats, cfg.bos_token_id,
+    logits0, cache = mod.prefill(params, feats, cfg.bos_token_id,
                                   max_length if graphs is None else 1, cfg,
                                   cache_dtype=cache_dtype,
                                   batch=None if feats is not None else b * k)
     t_total = max_length + 1
-    cache = gpt2.cache_to_beam_layers(cache, out=None if graphs is None else graphs.cache)
+    cache = mod.cache_to_beam_layers(cache, out=None if graphs is None else graphs.cache)
     dev = logits0.device
 
     # all K lanes of an item hold the same prefill K/V (features repeated),
@@ -467,8 +471,8 @@ def _decode(params, image_features, b: int, cfg: DecoderConfig,
     while go:
         with span("decode.step"):
             if graphs is None:
-                logits, cache = gpt2.decode_step_beam(params, tok, t, cache, anc, cfg,
-                                                      no_image=no_image)
+                logits, cache = mod.decode_step_beam(params, tok, t, cache, anc, cfg,
+                                                     no_image=no_image)
                 new_beam, tok, state = process(logits, state, t + 2, *lp_args)
                 anc = reorder_ancestry(anc, new_beam, t + 3)
             elif graphs.graphs is None and dev.type == "cuda":

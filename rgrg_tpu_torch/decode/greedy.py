@@ -1,4 +1,5 @@
-"""Greedy decoding over the static KV cache.
+"""Greedy decoding over the static KV cache, of the decoder the config
+names (models.decoder_module).
 
 The output id matrix is fixed [B, max_length]: column 0 is BOS, then the
 generated tokens; rows that have finished keep receiving pad (pad == eos,
@@ -14,7 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from rgrg_tpu_torch.core.config import DecoderConfig
-from rgrg_tpu_torch.models import gpt2
+from rgrg_tpu_torch.models import decoder_module
 from rgrg_tpu_torch.utils.logging import span
 
 
@@ -37,7 +38,8 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
     greedy_generate.prefills += 1
     b = image_features.shape[0]
     greedy_generate.rows += b
-    logits0, cache = gpt2.prefill(params, image_features, cfg.bos_token_id,
+    mod = decoder_module(cfg)
+    logits0, cache = mod.prefill(params, image_features, cfg.bos_token_id,
                                   max_length, cfg, cache_dtype=cache_dtype)
     out = torch.full((b, max_length), cfg.pad_token_id, dtype=torch.long,
                      device=image_features.device)
@@ -57,7 +59,7 @@ def greedy_generate(params: Dict[str, Any], image_features: torch.Tensor,
         go = t < max_length - 2 and bool(unfinished.any())
     while go:
         with span("decode.step"):
-            logits, cache = gpt2.decode_step(params, token, t, cache, cfg)
+            logits, cache = mod.decode_step(params, token, t, cache, cfg)
             token = torch.where(unfinished, torch.argmax(logits, dim=-1),
                                 cfg.pad_token_id)
             out[:, t + 2] = token

@@ -51,7 +51,9 @@ def sample_generate(params: Dict[str, Any], image_features: torch.Tensor,
     born finished. cache_dtype: None follows the parameter dtype;
     torch.int8 selects the quantized cache.
 
-    Each decode step adds one to `sample_generate.steps`."""
+    Each decode step adds one to `sample_generate.steps`. GPT-2 only."""
+    if cfg.kind != "gpt2":
+        raise NotImplementedError(f"sampling is not implemented for the {cfg.kind} decoder")
     b = image_features.shape[0]
     logits0, cache = gpt2.prefill(params, image_features, cfg.bos_token_id,
                                   max_length, cfg, cache_dtype=cache_dtype)

@@ -27,7 +27,7 @@ from rgrg_tpu_torch.core.device import DeviceLike, resolve_device
 from rgrg_tpu_torch.decode.beam import beam_generate
 from rgrg_tpu_torch.decode.greedy import greedy_generate
 from rgrg_tpu_torch.decode.sample import sample_generate
-from rgrg_tpu_torch.models import gpt2
+from rgrg_tpu_torch.models import decoder_module
 from rgrg_tpu_torch.models.detector import RegionDetector
 from rgrg_tpu_torch.models.layers import init_module_
 from rgrg_tpu_torch.ops.resize import device_preprocess
@@ -57,17 +57,17 @@ class RGRG:
     def init(self, seed: int = 0, device: DeviceLike = None,
              decoder_dtype: torch.dtype = torch.float32) -> Params:
         """Random params from one seed: the detector (lecun-normal convs and
-        dense layers, identity BatchNorm, f32) and the decoder (GPT-2
-        conventions, in `decoder_dtype`), each from its own
-        torch.Generator on `device`."""
+        dense layers, identity BatchNorm, f32) and the decoder the config
+        names (its module's init_decoder_params: N(0, 0.02) matrices, in
+        `decoder_dtype`), each from its own torch.Generator on `device`."""
         dev = resolve_device(device)
         g_det = torch.Generator(device=dev).manual_seed(seed)
         g_dec = torch.Generator(device=dev).manual_seed(seed + 1)
         detector = RegionDetector(self.cfg.detector, device=dev)
         init_module_(detector, g_det)
         detector.eval()
-        decoder = gpt2.init_decoder_params(g_dec, self.cfg.decoder,
-                                           decoder_dtype, dev)
+        decoder = decoder_module(self.cfg.decoder).init_decoder_params(
+            g_dec, self.cfg.decoder, decoder_dtype, dev)
         return {"detector": detector, "decoder": decoder}
 
     # ---------------- stages ----------------

@@ -46,6 +46,9 @@ from rgrg_tpu_torch.ops.dense_wint8 import dense_wint8
 Params = Dict[str, Any]
 
 MASK_VALUE = -1e4
+# the beam step's attention is kernel K3, launched eagerly between the
+# step's graph segments (decode/beam.StepGraphs)
+BEAM_ATTENTION_EAGER = True
 
 
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -456,6 +459,26 @@ def cache_to_beam_layers(cache: Dict[str, torch.Tensor],
         for i in range(c.shape[0]):
             out[f"{name}_{i}"][:, :, :c.shape[3]].copy_(c[i].transpose(0, 1))
     return out
+
+
+def beam_buffers(params: Params, cfg: DecoderConfig, lanes: int, slots: int,
+                 cache_dtype: torch.dtype) -> Dict[str, Any]:
+    """A step graph set's fixed buffers: the head-leading cache of
+    cache_to_beam_layers ([H, lanes, slots, D] a layer, K and V, with
+    [.., 1] f32 scales for int8), the queries [lanes, H, D] in the
+    weights' dtype and K3's f32 context [lanes, H, D]."""
+    wte = params["wte"]["embedding"]
+    dev, h, d = wte.device, cfg.num_heads, cfg.head_dim
+    cache = {}
+    for i in range(cfg.num_layers):
+        for name in ("k", "v"):
+            cache[f"{name}_{i}"] = torch.empty((h, lanes, slots, d), dtype=cache_dtype,
+                                               device=dev)
+            if cache_dtype == torch.int8:
+                cache[f"{name}_scale_{i}"] = torch.empty((h, lanes, slots, 1),
+                                                         dtype=torch.float32, device=dev)
+    return {"cache": cache, "q": torch.empty((lanes, h, d), dtype=wte.dtype, device=dev),
+            "ctx": torch.empty((lanes, h, d), dtype=torch.float32, device=dev)}
 
 
 def _write_slot(buf: torch.Tensor, slot, val: torch.Tensor) -> None:

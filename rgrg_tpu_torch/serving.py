@@ -214,7 +214,8 @@ def generate_reports_pipelined(gen: ReportGenerator,
     weights_int8: serve the decoder's per-layer matmul weights as
     weight-only per-channel int8 (gpt2.quantize_decoder_weights): True (or
     any other true value) the "xla" layout (a plain product over the
-    dequantised weights), "pallas" the layout kernel K4 reads directly.
+    dequantised weights), "pallas" the layout kernel K4 reads directly;
+    GPT-2 only.
     cascade_stats: an optional CascadeStats to read the cascade telemetry
     afterwards or to set the bail-out policy; one is made internally when
     the cascade is active.
@@ -260,6 +261,9 @@ def generate_reports_pipelined(gen: ReportGenerator,
             initial_budget = -(-initial_budget // mesh.size)
     params = gen.params
     if weights_int8:
+        if gen.model.cfg.decoder.kind != "gpt2":
+            raise NotImplementedError(
+                f"weights_int8 is not implemented for the {gen.model.cfg.decoder.kind} decoder")
         params = dict(params)
         params["decoder"] = gpt2.quantize_decoder_weights(
             params["decoder"], layout="pallas" if weights_int8 == "pallas" else "xla")

@@ -248,16 +248,23 @@ _COUNTERS = (("rgrg_tpu_torch.decode.greedy", "greedy_generate", ("prefills", "s
              ("rgrg_tpu_torch.ops.dense_wint8", "dense_wint8", ("launches",)))
 
 
-def counters() -> Dict[str, int]:
+def counters(device: bool = False) -> Dict[str, Any]:
     """The port's host counters (decode steps and rows, the rows the
     pipelined server selected, the kernels' launches) of the modules
-    loaded so far, as "function.counter"."""
-    out = {}
+    loaded so far, as "function.counter". device=True adds the counters
+    kept on the device, which this reads (a synchronising copy: never
+    inside a step): `moe.expert_rows` and `moe.expert_steps`, per expert
+    layer and expert the rows it took and the steps in which it took any
+    (ops/moe.py), where an expert layer ran."""
+    out: Dict[str, Any] = {}
     for module, fn, names in _COUNTERS:
         mod = sys.modules.get(module)
         if mod is not None:
             f = getattr(mod, fn)
             out.update({f"{fn}.{n}": getattr(f, n) for n in names})
+    moe = sys.modules.get("rgrg_tpu_torch.ops.moe")
+    if device and moe is not None:
+        out.update(moe.read_counters())
     return out
 
 
